@@ -1,0 +1,64 @@
+"""Build helpers for the hand-written kernels.
+
+Everything a kernel build writes goes under `<repo>/build/` (listed in
+.gitignore): the nvcc-built shared libraries and Triton's compile cache.
+Nothing here runs at import time; the first launch on a CUDA tensor
+builds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+
+_LIBS = {}
+
+
+def set_triton_cache_dir():
+    """Keep Triton's on-disk cache inside the checkout (it defaults to
+    $HOME/.triton). Call before the first `import triton`."""
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.isfile(path):
+        return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from source at first use")
+    return path
+
+
+def load_cuda_library(source):
+    """Compile `csrc/<source>` for sm_90a into a shared library with a plain
+    C interface (once per source content) and load it with ctypes."""
+    if source in _LIBS:
+        return _LIBS[source]
+    src = os.path.join(CSRC_DIR, source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out_dir = os.path.join(BUILD_DIR, "kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{digest}.so")
+    if not os.path.isfile(lib_path):
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-o", tmp, src]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}) for {src}:\n"
+                               f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    lib = ctypes.CDLL(lib_path)
+    _LIBS[source] = lib
+    return lib

@@ -1,0 +1,261 @@
+"""Pad -> upsample -> FIR filter -> downsample for batches of 2-D images
+(counterpart: latentaugment_tpu/ops/upfirdn2d.py).
+
+Two implementations sit side by side:
+
+  * `_upfirdn2d_ref`: plain PyTorch, the depthwise-conv form of the op
+    definition (the JAX package's `_upfirdn2d_ref`); autograd gives its
+    gradient. It runs for CPU tensors and for `impl='ref'`.
+  * kernel K2, `csrc/upfirdn2d.cu`, hand-written CUDA for sm_90a, built
+    with nvcc at first use and called through ctypes. Forward and
+    backward are the same kernel; the backward swaps up and down, flips
+    the filter and transforms the padding, as the Pallas kernel's custom
+    VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614). It runs for
+    every CUDA tensor unless `impl='ref'`; there is no fallback on the
+    card. It takes filters of at most 4 taps per axis (StyleGAN2's
+    [1, 3, 3, 1]) and raises for larger ones. The header of the .cu file
+    says what bounds it and how.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from . import _build
+
+# Launches of kernel K2 (forward and backward), counted where launched.
+launches = {'upfirdn2d': 0}
+
+
+def _parse_scaling(scaling):
+    if isinstance(scaling, int):
+        scaling = [scaling, scaling]
+    sx, sy = (int(s) for s in scaling)
+    if sx < 1 or sy < 1:
+        raise ValueError(f"scaling factors must be >= 1, got {scaling}")
+    return sx, sy
+
+
+def _parse_padding(padding):
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    padding = [int(p) for p in padding]
+    if len(padding) == 2:
+        padx, pady = padding
+        padding = [padx, padx, pady, pady]
+    padx0, padx1, pady0, pady1 = padding
+    return padx0, padx1, pady0, pady1
+
+
+def _get_filter_size(f):
+    if f is None:
+        return 1, 1
+    if f.ndim not in (1, 2):
+        raise ValueError(f"filter must be 1-D or 2-D, got {f.ndim}-D")
+    return int(f.shape[-1]), int(f.shape[0])
+
+
+def setup_filter(f, device=torch.device('cpu'), normalize=True, flip_filter=False,
+                 gain=1, separable=None):
+    """Prepare a 2-D FIR filter for upfirdn2d (normalize / flip / gain).
+
+    Returns a float32 tensor: [fh, fw] (non-separable) or [taps]
+    (separable)."""
+    if f is None:
+        f = 1
+    f = np.asarray(f, dtype=np.float32)
+    if f.ndim not in (0, 1, 2) or f.size == 0:
+        raise ValueError(f"bad filter shape {f.shape}")
+    if f.ndim == 0:
+        f = f[np.newaxis]
+    if separable is None:
+        separable = (f.ndim == 1 and f.size >= 8)
+    if f.ndim == 1 and not separable:
+        f = np.outer(f, f)
+    if normalize:
+        f = f / f.sum()
+    if flip_filter:
+        f = f[::-1] if f.ndim == 1 else f[::-1, ::-1]
+    f = f * (gain ** (f.ndim / 2))
+    return torch.as_tensor(f.copy(), dtype=torch.float32, device=device)
+
+
+def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1,
+              impl='auto'):
+    """Apply the upsample/pad/FIR/downsample pipeline to NCHW `x`.
+
+    `padding` is [x0, x1, y0, y1] w.r.t. the upsampled image (negative =
+    crop); flip_filter False = convolution, True = correlation; `gain`
+    scales the output. impl: 'auto' (kernel K2 on CUDA tensors, plain
+    PyTorch on CPU tensors) or 'ref' (plain PyTorch everywhere).
+    """
+    if x.ndim != 4:
+        raise ValueError(f"upfirdn2d expects NCHW, got shape {tuple(x.shape)}")
+    if impl not in ('auto', 'ref'):
+        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    if impl == 'ref' or x.device.type == 'cpu':
+        return _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
+    if x.device.type != 'cuda':
+        raise NotImplementedError(f"upfirdn2d has no kernel for {x.device}")
+    if f is None:
+        f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
+    if f.requires_grad:
+        raise ValueError("kernel K2 treats the filter as a constant; "
+                         "use impl='ref' to differentiate w.r.t. it")
+    return _Upfirdn2dFunction.apply(x, f, _parse_scaling(up), _parse_scaling(down),
+                                    _parse_padding(padding), bool(flip_filter),
+                                    float(gain))
+
+
+def _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain):
+    """Literal translation of the op definition, depthwise-conv form."""
+    batch, channels, in_h, in_w = x.shape
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    if in_w * upx + padx0 + padx1 < fw or in_h * upy + pady0 + pady1 < fh:
+        raise ValueError("padded image is smaller than the filter")
+
+    # Upsample by zero insertion.
+    x = x.reshape(batch, channels, in_h, 1, in_w, 1)
+    x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
+    x = x.reshape(batch, channels, in_h * upy, in_w * upx)
+
+    # Pad or crop.
+    x = F.pad(x, [max(padx0, 0), max(padx1, 0), max(pady0, 0), max(pady1, 0)])
+    x = x[:, :, max(-pady0, 0): x.shape[2] - max(-pady1, 0),
+          max(-padx0, 0): x.shape[3] - max(-padx1, 0)]
+
+    # Gain and the flip convention (conv2d correlates; the op convolves).
+    if f is None:
+        f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
+    f = f * (gain ** (f.ndim / 2))
+    if not flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    f = f.to(x.dtype)
+    if f.ndim == 1:
+        x = F.conv2d(x, f[None, None, None, :].repeat(channels, 1, 1, 1), groups=channels)
+        x = F.conv2d(x, f[None, None, :, None].repeat(channels, 1, 1, 1), groups=channels)
+    else:
+        x = F.conv2d(x, f[None, None].repeat(channels, 1, 1, 1), groups=channels)
+
+    # Downsample by throwing away pixels.
+    return x[:, :, ::downy, ::downx]
+
+
+# ----------------------------------------------------------------------------
+# Kernel K2 (CUDA C++, csrc/upfirdn2d.cu).
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_TAPS = 4  # per axis; UPFIRDN2D_MAX_TAPS in the .cu file
+
+
+def _library():
+    lib = _build.load_cuda_library('upfirdn2d.cu')
+    fn = lib.upfirdn2d_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, f, up, down, padding, flip_filter, gain):
+    """y = upfirdn2d(x) on the card. up/down are (x, y) pairs, padding is
+    (x0, x1, y0, y1)."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
+    if f.device != x.device:
+        raise ValueError(f"filter on {f.device}, input on {x.device}")
+    fw, fh = _get_filter_size(f)
+    if max(fw, fh) > _MAX_TAPS:
+        raise NotImplementedError(f"kernel K2 takes at most {_MAX_TAPS} taps per axis, "
+                                  f"got a {fh}x{fw} filter; use impl='ref'")
+    x = x.contiguous()
+    f = f.to(torch.float32).contiguous()
+    upx, upy = up
+    downx, downy = down
+    padx0, padx1, pady0, pady1 = padding
+    n, c, in_h, in_w = x.shape
+    out_h = (in_h * upy + pady0 + pady1 - fh) // downy + 1
+    out_w = (in_w * upx + padx0 + padx1 - fw) // downx + 1
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError("padded image is smaller than the filter")
+    y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), f.data_ptr(), _DTYPE_CODE[x.dtype],
+                 n * c, in_h, in_w, out_h, out_w, upx, upy, downx, downy,
+                 padx0, pady0, fw, fh, int(f.ndim == 1), int(flip_filter),
+                 float(gain), stream)
+    if err != 0:
+        raise RuntimeError(f"upfirdn2d kernel launch failed: CUDA error {err}")
+    launches['upfirdn2d'] += 1
+    return y
+
+
+class _Upfirdn2dFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, flip_filter, gain):
+        y = _launch(x, f, up, down, padding, flip_filter, gain)
+        ctx.save_for_backward(f)
+        ctx.cfg = (up, down, padding, flip_filter, gain, x.shape)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        f, = ctx.saved_tensors
+        (upx, upy), (downx, downy), (padx0, _, pady0, _), flip_filter, gain, \
+            x_shape = ctx.cfg
+        fw, fh = _get_filter_size(f)
+        _, _, ih, iw = x_shape
+        _, _, oh, ow = dy.shape
+        p = (fw - padx0 - 1,
+             iw * upx - ow * downx + padx0 - upx + 1,
+             fh - pady0 - 1,
+             ih * upy - oh * downy + pady0 - upy + 1)
+        dx = _launch(dy, f, (downx, downy), (upx, upy), p, not flip_filter, gain)
+        if dx.shape != x_shape:
+            raise RuntimeError(f"upfirdn2d backward shape {tuple(dx.shape)} "
+                               f"!= input shape {tuple(x_shape)}")
+        return dx, None, None, None, None, None, None
+
+
+# ----------------------------------------------------------------------------
+# Convenience wrappers.
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1, impl='auto'):
+    """FIR-filter images; output padded to match input shape by default."""
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [padx0 + fw // 2, padx1 + (fw - 1) // 2,
+         pady0 + fh // 2, pady1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain, impl=impl)
+
+
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1, impl='auto'):
+    """Upsample images by `up` with FIR smoothing (output gain up^2)."""
+    upx, upy = _parse_scaling(up)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [padx0 + (fw + upx - 1) // 2, padx1 + (fw - upx) // 2,
+         pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy, impl=impl)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1, impl='auto'):
+    """Downsample images by `down` with FIR anti-aliasing."""
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = _get_filter_size(f)
+    p = [padx0 + (fw - downx + 1) // 2, padx1 + (fw - downx) // 2,
+         pady0 + (fh - downy + 1) // 2, pady1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
+                     gain=gain, impl=impl)
