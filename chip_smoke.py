@@ -4,26 +4,36 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout; it needs one CUDA device, nvcc (for the
-upfirdn2d kernel) and Triton (for bias_act), and imports no JAX. Any
-failure raises and exits non-zero, printing no result line.
+upfirdn2d and filtered_lrelu kernels) and Triton (for bias_act), and
+imports no JAX. Any failure raises and exits non-zero, printing no result
+line.
 
-  1. Kernels: builds both hand-written kernels from the checkout's
-     sources and holds each, forward and input gradient, against its
-     plain PyTorch version at the shapes the walk gives it, in float32
-     (TF32 off) and bfloat16, timing both (median of 20, CUDA events).
-  2. Small reference: a 32x32 walk (K=3) on the CPU with the plain
-     versions against the same walk on the card through the kernels.
-  3. The slice: the LatentAugment policy at the operating point (256x256,
-     2 modalities, channel_base 32768, channel_max 512, bf16 in the top 4
-     blocks, LPIPS VGG16 on 64x64 crops, K=10 Adam steps, batch 32) through
-     AugOptions -> create_dataset -> create_augment -> set_input / forward
-     / get_output for 3 batches, with the kernels' launch counters reset
-     just before and read just after; then the same with --impl ref.
+  1. Kernels: builds the three hand-written kernels from the checkout's
+     sources (the two nvcc builds run side by side) and holds each,
+     forward and input gradient, against its plain PyTorch version at the
+     shapes the StyleGAN2 and StyleGAN3 walks give it, in float32 (TF32
+     off) and bfloat16, timing both (median of 20, CUDA events).
+  2. Small reference: a 32x32 StyleGAN2 walk and a 64x64 StyleGAN3 walk
+     (K=3, float32) on the CPU with the plain versions against the same
+     walks on the card through the kernels.
+  3. The StyleGAN2 slice: the LatentAugment policy at the operating point
+     (256x256, 2 modalities, channel_base 32768, channel_max 512, bf16 in
+     the top 4 blocks, LPIPS VGG16 on 64x64 crops, K=10 Adam steps, batch
+     32) through AugOptions -> create_dataset -> create_augment ->
+     set_input / forward / get_output for 3 batches, with the kernels'
+     launch counters reset just before and read just after; then the
+     same with --impl ref.
+  4. The StyleGAN3 slice: the same policy over an alias-free SG3-T
+     checkpoint (same widths, bf16 from layer 3 on, batch 16, no remat),
+     3 batches with the kernels, then with --impl ref; where the plain
+     versions do not fit the card at batch 16 it says so and compares at
+     the largest batch that fits.
 
 The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import gc
 import json
 import math
 import os
@@ -36,8 +46,18 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}        # forward, max err / max |plain|
 TOL_GRAD = {"float32": 1e-5, "bfloat16": 2e-2}   # bf16 plain gradients round 3-4 times
+# filtered_lrelu in bf16: K3 rounds once, the plain version at each of its
+# four stages (bias, up-FIR, lrelu, down-FIR), so its values get the
+# gradient bound. Its backward is held against the plain backward at the
+# plain version's own sign/clamp record: lrelu's derivative jumps at 0,
+# and where an up-rate value lies within rounding of 0 (in bf16 about one
+# pixel in a thousand) the two may take different branches. K3's own
+# record may differ from the plain one on at most this share of pixels:
+TOL_FL = {"float32": 1e-5, "bfloat16": 2e-2}
+RECORD_SLIVER = {"float32": 1e-5, "bfloat16": 1e-2}
 SQRT_HALF = math.sqrt(0.5)
 BATCH, RES, N_BATCHES = 32, 256, 3
+SG3_BATCH = 16
 
 
 def log(msg):
@@ -61,8 +81,9 @@ def median_ms(fn, n=20, warmup=3):
     return statistics.median(times)
 
 
-def compare(name, fn, x, dy_seed, dtype_name, records):
-    """Kernel (impl='auto') vs plain (impl='ref'): values and dx, timed."""
+def run_both(fn, x, dy_seed):
+    """Kernel (impl='auto') and plain (impl='ref') on the same x and dy:
+    (values, dx, (fwd ms, bwd ms)) keyed by impl, and dy."""
     import torch
 
     ys, dxs, ms = {}, {}, {}
@@ -79,25 +100,42 @@ def compare(name, fn, x, dy_seed, dtype_name, records):
         bwd_ms = median_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
         ys[impl], dxs[impl], ms[impl] = y.detach(), dx, (fwd_ms, bwd_ms)
         del y, xg
-    rec = {"case": name, "dtype": dtype_name, "shape": list(x.shape)}
-    for key, (k, r), tol in (("fwd", (ys["auto"], ys["ref"]), TOL[dtype_name]),
-                              ("bwd", (dxs["auto"], dxs["ref"]), TOL_GRAD[dtype_name])):
-        if k.shape != r.shape or k.dtype != r.dtype:
-            raise AssertionError(f"{name} {key}: kernel {tuple(k.shape)} {k.dtype}, "
-                                 f"plain {tuple(r.shape)} {r.dtype}")
-        diff = (k.float() - r.float()).abs().max().item()
-        scale = r.float().abs().max().item()
-        if not math.isfinite(diff) or diff > tol * max(scale, 1e-30):
-            raise AssertionError(f"{name} {key} {dtype_name}: max |kernel - plain| = {diff} "
-                                 f"> {tol} x max |plain| = {scale}")
-        rec[f"{key}_max_abs_err"] = diff
-        rec[f"{key}_rel_err"] = diff / max(scale, 1e-30)
+        torch.cuda.empty_cache()
+    return ys, dxs, ms, dy
+
+
+def check_close(rec, key, got, want, tol):
+    """max |got - want| <= tol * max |want| (same shape and dtype), noted
+    in rec under `key`."""
+    name, dtype_name = rec["case"], rec["dtype"]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} {key}: kernel {tuple(got.shape)} {got.dtype}, "
+                             f"plain {tuple(want.shape)} {want.dtype}")
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not math.isfinite(diff) or diff > tol * max(scale, 1e-30):
+        raise AssertionError(f"{name} {key} {dtype_name}: max |kernel - plain| = {diff} "
+                             f"> {tol} x max |plain| = {scale}")
+    rec[f"{key}_max_abs_err"] = diff
+    rec[f"{key}_rel_err"] = diff / max(scale, 1e-30)
+
+
+def finish_record(rec, ms, records, extra=""):
     rec["fwd_ms"], rec["bwd_ms"] = ms["auto"]
     rec["plain_fwd_ms"], rec["plain_bwd_ms"] = ms["ref"]
     records.append(rec)
-    log(f"  {name:34s} {dtype_name:8s} fwd err {rec['fwd_rel_err']:.2e} bwd err "
-        f"{rec['bwd_rel_err']:.2e} | fwd {rec['fwd_ms']:.3f} ms (plain {rec['plain_fwd_ms']:.3f})"
-        f" bwd {rec['bwd_ms']:.3f} ms (plain {rec['plain_bwd_ms']:.3f})")
+    log(f"  {rec['case']:34s} {rec['dtype']:8s} fwd err {rec['fwd_rel_err']:.2e} bwd err "
+        f"{rec['bwd_rel_err']:.2e}{extra} | fwd {rec['fwd_ms']:.3f} ms (plain "
+        f"{rec['plain_fwd_ms']:.3f}) bwd {rec['bwd_ms']:.3f} ms (plain {rec['plain_bwd_ms']:.3f})")
+
+
+def compare(name, fn, x, dy_seed, dtype_name, records):
+    """Kernel vs plain: values and dx, timed."""
+    ys, dxs, ms, _ = run_both(fn, x, dy_seed)
+    rec = {"case": name, "dtype": dtype_name, "shape": list(x.shape)}
+    check_close(rec, "fwd", ys["auto"], ys["ref"], TOL[dtype_name])
+    check_close(rec, "bwd", dxs["auto"], dxs["ref"], TOL_GRAD[dtype_name])
+    finish_record(rec, ms, records)
     return rec
 
 
@@ -154,14 +192,69 @@ def phase_kernels(torch, ba, up, dev):
     return bias_recs, up_recs
 
 
-def phase_small_reference(torch, benchmark):
-    """A 32x32 walk on the CPU (plain versions) against the card (kernels)."""
-    log("phase 2: small walk, CPU plain vs card kernels (float32)")
+def phase_flrelu(torch, fl, net3, dev):
+    """K3 against its plain version at the StyleGAN3 walk's layer shapes,
+    with the layers' own filters, clamp and gains."""
+    log("phase 1b: filtered_lrelu (K3) vs plain PyTorch")
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = {f32: "float32", bf16: "bfloat16"}
+    layers = {layer.name.split("_")[0]: layer for layer in net3.generator_config().layers}
+    g = torch.Generator(device=dev).manual_seed(7)
+    recs = []
+    cases = [
+        ("L10 up4 crop(-6,-9)", "L10", [SG3_BATCH, 256, 150, 150], bf16),
+        ("L8 up2 pad(9,8)", "L8", [SG3_BATCH, 512, 150, 150], bf16),
+        ("L13 critical crop(-11,-12)", "L13", [SG3_BATCH, 128, 278, 278], bf16),
+        ("L0 up2 pad(9,8)", "L0", [SG3_BATCH, 512, 38, 38], f32),
+        ("toRGB", "L14", [SG3_BATCH, 2, 256, 256], bf16),
+    ]
+    for name, lname, shape, dtype in cases:
+        layer = layers[lname]
+        fu, fd = (None if f is None else torch.as_tensor(f, device=dev)
+                  for f in net3._layer_filters(layer))
+        lo, hi = layer.padding
+        kw = dict(up=layer.up_factor, down=layer.down_factor, padding=(lo, hi, lo, hi),
+                  gain=1.0 if layer.is_torgb else math.sqrt(2.0),
+                  slope=1.0 if layer.is_torgb else 0.2, clamp=256.0, flip_filter=False)
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        b = (torch.randn([shape[1]], generator=g, device=dev) * 0.1).to(dtype)
+        ys, dxs, ms, dy = run_both(
+            lambda x, impl: fl.filtered_lrelu(x, fu, fd, b, impl=impl, **kw), x, 200 + len(recs))
+        args = (kw["up"], kw["down"], kw["padding"], kw["gain"], kw["slope"])
+        rec_ref = fl._record_ref(x, fu, b, kw["up"], kw["padding"], kw["gain"], kw["slope"],
+                                 kw["clamp"], False)
+        dx_at_ref = fl._backward_kernel(dy, rec_ref, tuple(shape[2:]), fu, fd, *args, False)
+        _, rec_k = fl._forward_kernel(x, fu, fd, b, *args, kw["clamp"], False, need_record=True)
+        dx_at_own = fl._backward_kernel(dy, rec_k, tuple(shape[2:]), fu, fd, *args, False)
+        dn = names[dtype]
+        rec = {"case": name, "dtype": dn, "shape": list(shape)}
+        check_close(rec, "fwd", ys["auto"], ys["ref"], TOL_FL[dn])
+        check_close(rec, "bwd", dx_at_ref, dxs["ref"], TOL_GRAD[dn])
+        sliver = (rec_k != rec_ref).float().mean().item()
+        if sliver > RECORD_SLIVER[dn]:
+            raise AssertionError(f"{name}: K3's record differs from the plain one on "
+                                 f"{sliver:.2e} of the pixels (> {RECORD_SLIVER[dn]})")
+        if not torch.equal(dxs["auto"], dx_at_own):
+            raise AssertionError(f"{name}: the autograd backward is not K3 at its own record")
+        rec["record_mismatch_share"] = sliver
+        rec["record_bytes"] = rec_k.numel()
+        finish_record(rec, ms, recs, extra=f" record {sliver:.1e}")
+        del x, b, dy, ys, dxs, rec_ref, rec_k, dx_at_ref, dx_at_own
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_small_reference(torch, benchmark, arch="stylegan2"):
+    """A small walk on the CPU (plain versions) against the card (kernels):
+    StyleGAN2 at 32x32, the alias-free generator at 64x64 (6 layers)."""
+    log(f"phase 2: small {arch} walk, CPU plain vs card kernels (float32)")
+    setup = dict(res=32, channel_base=1024, channel_max=64) if arch == "stylegan2" else \
+        dict(res=64, channel_base=2048, channel_max=64, num_fp16_res=0, arch=arch,
+             num_layers=6)
     out = {}
     for dev in ("cpu", "cuda"):
         fns, bundle, g_cfg = benchmark.build_synthetic_setup(
-            torch.device(dev), res=32, channel_base=1024, channel_max=64, num_epochs=3,
-            crop_size=16, manifold_items=8, seed=5)
+            torch.device(dev), num_epochs=3, crop_size=16, manifold_items=8, seed=5, **setup)
         w0 = torch.randn([4, 1, g_cfg.w_dim], generator=torch.Generator().manual_seed(6)) * 0.5
         img, ws, traces = fns.walk(bundle, w0.to(dev), (2, 4), torch.Generator(device=dev))
         out[dev] = (ws.cpu(), {k: v.cpu() for k, v in traces.items()}, img.cpu())
@@ -183,7 +276,9 @@ def phase_small_reference(torch, benchmark):
 
 def run_policy(torch, argv, counters):
     """AugOptions -> create_dataset -> create_augment -> per-batch
-    set_input / forward / get_output; returns per-batch records."""
+    set_input / forward / get_output over the first N_BATCHES batches;
+    returns per-batch records, the launch counts, set-up seconds and the
+    peak device memory."""
     from latentaugment_tpu_torch.augments import create_augment
     from latentaugment_tpu_torch.data import create_dataset
     from latentaugment_tpu_torch.options import AugOptions
@@ -209,63 +304,117 @@ def run_policy(torch, argv, counters):
         batches.append(dict(out=out, wall=wall, traces=traces,
                             w_in=augment.get_latent_input()["w"],
                             w_out=augment.get_latent_output()["w"]))
+        if len(batches) == N_BATCHES:
+            break
     launches = {k: v for c in counters for k, v in c.items()}
     return batches, launches, setup_s, torch.cuda.max_memory_allocated()
 
 
-def phase_slice(torch, np, benchmark, ba, up):
-    log("phase 3: the LatentAugment policy at the operating point")
-    root = os.path.join(REPO, "build", "chip_smoke")
-    shutil.rmtree(root, ignore_errors=True)
-    argv = benchmark.build_policy_workspace(root, batch_size=BATCH)
-    counters = (ba.launches, up.launches)
+def run_policy_fits(torch, argv, counters):
+    """run_policy, or None when the card runs out of memory."""
+    try:
+        return run_policy(torch, argv, counters)
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"  out of memory: {str(e).splitlines()[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
 
-    batches, launches, setup_s, peak = run_policy(torch, argv, counters)
+
+def check_batches(torch, np, batches, batch, label):
     if len(batches) != N_BATCHES:
-        raise AssertionError(f"expected {N_BATCHES} batches, got {len(batches)}")
+        raise AssertionError(f"{label}: expected {N_BATCHES} batches, got {len(batches)}")
     for i, b in enumerate(batches):
         for k in ("A", "B"):
             a = b["out"][k]
-            if a.shape != (BATCH, 1, RES, RES) or not np.isfinite(a).all():
-                raise AssertionError(f"batch {i} {k}: shape {a.shape}, finite {np.isfinite(a).all()}")
+            if a.shape != (batch, 1, RES, RES) or not np.isfinite(a).all():
+                raise AssertionError(f"{label} batch {i} {k}: shape {a.shape}, "
+                                     f"finite {np.isfinite(a).all()}")
         if np.allclose(b["w_out"], b["w_in"]):
-            raise AssertionError(f"batch {i}: the walk did not move w")
+            raise AssertionError(f"{label} batch {i}: the walk did not move w")
         for k, v in b["traces"].items():
             if v.shape != (10,) or not torch.isfinite(v).all():
-                raise AssertionError(f"batch {i}: loss trace {k} = {v}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    kernel_sps = 2 * BATCH / (batches[1]["wall"] + batches[2]["wall"])
-    log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
-        f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
-        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
+                raise AssertionError(f"{label} batch {i}: loss trace {k} = {v}")
 
-    ref, ref_launches, _, ref_peak = run_policy(torch, argv + ["--impl", "ref"], counters)
-    if any(ref_launches.values()):
-        raise AssertionError(f"--impl ref launched kernels: {ref_launches}")
-    ref_sps = 2 * BATCH / (ref[1]["wall"] + ref[2]["wall"])
-    log(f"  plain (--impl ref): batch walls {[round(b['wall'], 3) for b in ref]} s, "
-        f"{ref_sps:.3f} samples/s over batches 2-3, peak memory {ref_peak / 2**30:.2f} GiB")
-    # The step-0 losses depend on the forward pass only (same data, w and
-    # crop): kernels and plain versions agree to bf16 rounding.
+
+def step0_agree(np, batches, ref, label):
+    """The step-0 losses depend on the forward pass only (same data, w and
+    crop): kernels and plain versions agree to bf16 rounding (1e-2)."""
     step0 = []
     for i, (bk, br) in enumerate(zip(batches, ref)):
         np.testing.assert_array_equal(bk["w_in"], br["w_in"])
         for k in bk["traces"]:
             a, r = bk["traces"][k][0].item(), br["traces"][k][0].item()
             if abs(a - r) > 1e-2 * abs(r) + 1e-6:
-                raise AssertionError(f"batch {i} step-0 {k}: kernels {a}, plain {r}")
+                raise AssertionError(f"{label} batch {i} step-0 {k}: kernels {a}, plain {r}")
             step0.append((i, k, a, r))
     log(f"  step-0 losses, kernels vs plain: max rel diff "
         f"{max(abs(a - r) / max(abs(r), 1e-12) for _, _, a, r in step0):.2e}")
-    return dict(launches=launches, kernel_samples_per_s=kernel_sps,
-                plain_samples_per_s=ref_sps, batch_wall_s=[b["wall"] for b in batches],
-                plain_batch_wall_s=[b["wall"] for b in ref], setup_s=setup_s,
-                peak_mem_bytes=peak, plain_peak_mem_bytes=ref_peak,
-                step0_losses=[{"batch": i, "loss": k, "kernels": a, "plain": r}
-                              for i, k, a, r in step0],
-                loss_traces=[{k: v.tolist() for k, v in b["traces"].items()} for b in batches])
+    return [{"batch": i, "loss": k, "kernels": a, "plain": r} for i, k, a, r in step0]
+
+
+def samples_per_s(batches, batch):
+    return 2 * batch / (batches[1]["wall"] + batches[2]["wall"])
+
+
+def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
+    """The policy at the operating point for one generator family: kernels,
+    then plain versions (at a smaller batch if the card cannot hold them)."""
+    sg3 = arch == "stylegan3"
+    log(f"phase {4 if sg3 else 3}: the LatentAugment policy, {arch}, batch {batch}")
+    root = os.path.join(REPO, "build", f"chip_smoke_{arch}")
+    shutil.rmtree(root, ignore_errors=True)
+    # 3 batches' worth of slices at this batch size.
+    argv = benchmark.build_policy_workspace(root, batch_size=batch, arch=arch,
+                                            n_patients=N_BATCHES * batch // 24)
+
+    batches, launches, setup_s, peak = run_policy(torch, argv, counters)
+    check_batches(torch, np, batches, batch, arch)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {arch} path")
+    kernel_sps = samples_per_s(batches, batch)
+    log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
+        f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
+    rec = dict(arch=arch, batch=batch, launches=launches, kernel_samples_per_s=kernel_sps,
+               batch_wall_s=[b["wall"] for b in batches], setup_s=setup_s,
+               peak_mem_bytes=peak,
+               loss_traces=[{k: v.tolist() for k, v in b["traces"].items()} for b in batches])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain_batch = batch
+    while True:
+        argv_b = argv + ["--batch_size", str(plain_batch)]
+        got = run_policy_fits(torch, argv_b + ["--impl", "ref"], counters)
+        if got is not None:
+            break
+        if plain_batch == 1:
+            raise AssertionError(f"{arch}: the plain versions do not fit at batch 1")
+        log(f"plain (--impl ref) does not fit at batch {plain_batch} on this card; "
+            f"plain comparison at batch {plain_batch // 2}")
+        plain_batch //= 2
+    ref, ref_launches, _, ref_peak = got
+    check_batches(torch, np, ref, plain_batch, f"{arch} plain")
+    if any(ref_launches.values()):
+        raise AssertionError(f"--impl ref launched kernels: {ref_launches}")
+    ref_sps = samples_per_s(ref, plain_batch)
+    log(f"  plain (--impl ref) at batch {plain_batch}: batch walls "
+        f"{[round(b['wall'], 3) for b in ref]} s, {ref_sps:.3f} samples/s over batches 2-3, "
+        f"peak memory {ref_peak / 2**30:.2f} GiB")
+    if plain_batch != batch:
+        # The kernels again at the plain batch, for the step-0 comparison.
+        batches, _, _, k_peak = run_policy(torch, argv_b, counters)
+        rec.update(kernel_samples_per_s_at_plain_batch=samples_per_s(batches, plain_batch),
+                   peak_mem_bytes_at_plain_batch=k_peak)
+        log(f"  kernels at batch {plain_batch}: "
+            f"{rec['kernel_samples_per_s_at_plain_batch']:.3f} samples/s, "
+            f"peak memory {k_peak / 2**30:.2f} GiB")
+    rec.update(step0_losses=step0_agree(np, batches, ref, arch), plain_batch=plain_batch,
+               plain_fits_batch=plain_batch == batch, plain_samples_per_s=ref_sps,
+               plain_batch_wall_s=[b["wall"] for b in ref], plain_peak_mem_bytes=ref_peak)
+    return rec
 
 
 def main():
@@ -282,7 +431,10 @@ def main():
     import numpy as np
 
     from latentaugment_tpu_torch import benchmark
+    from latentaugment_tpu_torch.models.stylegan3 import networks as net3
+    from latentaugment_tpu_torch.ops import _build
     from latentaugment_tpu_torch.ops import bias_act as ba
+    from latentaugment_tpu_torch.ops import filtered_lrelu as fl
     from latentaugment_tpu_torch.ops import upfirdn2d as up
 
     torch.backends.cudnn.allow_tf32 = False
@@ -294,16 +446,23 @@ def main():
         "TF32 off for convs and matmuls")
 
     t0 = time.time()
+    _build.build_cuda_libraries(["upfirdn2d.cu", "filtered_lrelu.cu"])
+    log(f"  nvcc builds (side by side) took {time.time() - t0:.1f} s")
     bias_recs, up_recs = phase_kernels(torch, ba, up, dev)
+    fl_recs = phase_flrelu(torch, fl, net3, dev)
     log(f"  phase 1 took {time.time() - t0:.1f} s (builds included)")
-    small = phase_small_reference(torch, benchmark)
-    slice_rec = phase_slice(torch, np, benchmark, ba, up)
+    small = {"stylegan2": phase_small_reference(torch, benchmark),
+             "stylegan3": phase_small_reference(torch, benchmark, arch="stylegan3")}
+    slice_rec = phase_slice(torch, np, benchmark, (ba.launches, up.launches))
+    sg3_rec = phase_slice(torch, np, benchmark, (ba.launches, up.launches, fl.launches),
+                          arch="stylegan3", batch=SG3_BATCH)
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
 
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
+    fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
     kernels = [
         {"name": "bias_act_fwd", "route": "triton", "source": "latentaugment_tpu_torch/ops/bias_act.py",
          "replaces": "latentaugment_tpu/ops/bias_act.py:125",
@@ -320,14 +479,27 @@ def main():
          "launches": slice_rec["launches"]["upfirdn2d"],
          "max_abs_err": max(max(r["fwd_max_abs_err"], r["bwd_max_abs_err"]) for r in up_recs),
          "ms": up_main["fwd_ms"], "plain_ms": up_main["plain_fwd_ms"]},
+        {"name": "filtered_lrelu_fwd", "route": "cuda",
+         "source": "latentaugment_tpu_torch/csrc/filtered_lrelu.cu",
+         "replaces": "latentaugment_tpu/ops/filtered_lrelu.py:410",
+         "launches": sg3_rec["launches"]["filtered_lrelu_fwd"],
+         "max_abs_err": max(r["fwd_max_abs_err"] for r in fl_recs),
+         "ms": fl_main["fwd_ms"], "plain_ms": fl_main["plain_fwd_ms"]},
+        {"name": "filtered_lrelu_bwd", "route": "cuda",
+         "source": "latentaugment_tpu_torch/csrc/filtered_lrelu.cu",
+         "replaces": "latentaugment_tpu/ops/filtered_lrelu.py:410",
+         "launches": sg3_rec["launches"]["filtered_lrelu_bwd"],
+         "max_abs_err": max(r["bwd_max_abs_err"] for r in fl_recs),
+         "ms": fl_main["bwd_ms"], "plain_ms": fl_main["plain_bwd_ms"]},
     ]
 
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "bias_act": bias_recs, "upfirdn2d": up_recs, "small_reference": small,
-                   "slice": slice_rec, "kernels": kernels}, f, indent=1)
+                   "bias_act": bias_recs, "upfirdn2d": up_recs, "filtered_lrelu": fl_recs,
+                   "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
+                   "kernels": kernels}, f, indent=1)
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -156,7 +156,7 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
 
     return EasyDict(walk=walk, ganrand=ganrand, z_to_w=z_to_w,
                     loss_fn=loss_fn, adam_step=adam_step, finish=finish,
-                    num_epochs=num_epochs)
+                    num_epochs=num_epochs, remat=remat)
 
 
 def resolve_device(name):
@@ -296,10 +296,26 @@ class LatentAugEngine:
             w_disc=self.w_disc, num_epochs=self.num_epochs, opt_lr=self.opt_lr,
             crop_size=self.crop_size, preprocess=self.preprocess,
             soft_aug=bool(self.soft_aug), alpha=float(self.alpha),
-            truncation_psi=self.truncation_psi, lpips_ref_input=self.lpips_ref_input)
+            truncation_psi=self.truncation_psi, lpips_ref_input=self.lpips_ref_input,
+            remat=self._remat_setting(opt))
         self._bundle = make_bundle(
             self.G, self.D, self.vgg_params, W_summary=self.W_summary,
             X_cc_summaries=self.X_cc_summaries, fea_summaries=self.fea_summaries)
+
+    def _remat_setting(self, opt):
+        """Per-block remat unless the options set it: on when G runs all in
+        float32 (num_fp16_res 0), whose activations are the largest; a
+        string 'true'/'false' or an int (blocks with res >= it) as given,
+        as the JAX engine reads `opt.remat`."""
+        r = getattr(opt, "remat", None)
+        if r is None or r == "":
+            return self.G_cfg.num_fp16_res == 0
+        if isinstance(r, str):
+            low = r.lower()
+            if low in ("true", "false"):
+                return low == "true"
+            return int(r)
+        return r
 
     def load_stylegan(self, opt):
         """Native checkpoint -> (G, D) modules on the device, frozen."""

@@ -1,12 +1,16 @@
 """Synthetic set-ups at the walk's operating point, from seeded weights
 (counterpart: latentaugment_tpu/benchmark.py:40-230).
 
-  * `build_synthetic_setup`: real-size StyleGAN2 G/D + LPIPS VGG16 with
-    seeded random weights and synthetic manifold summaries, and the walk
+  * `build_synthetic_setup`: real-size G/D + LPIPS VGG16 with seeded
+    random weights and synthetic manifold summaries, and the walk
     functions the engine runs — no datasets.
   * `build_policy_workspace`: an on-disk workspace (native checkpoint,
     image zip, inversion zip) and the AugOptions argv that runs the whole
     LatentAugment policy on it.
+
+`arch` picks the generator: "stylegan2" (default) or "stylegan3" (the
+alias-free SG3-T, whose generator_config takes further keyword
+overrides through **g_over); D is always the StyleGAN2 one.
 
 Defaults are the operating point: 256x256, 2 modalities, channel_base
 32768, channel_max 512, bf16 in the top 4 blocks, LPIPS on 64x64 crops,
@@ -24,19 +28,19 @@ import torch
 
 from .augments import engine as engine_mod
 from .augments import losses, manifold
-from .models import vgg
+from .models import networks_for, vgg
 from .models.stylegan2 import checkpoint, networks
 
 MODALITIES = ["MR_nonrigid_CT", "MR_MR_T2"]
 
 
 def make_gd_configs(res, img_channels, channel_base, channel_max, num_fp16_res,
-                    mbstd_group_size=4):
+                    mbstd_group_size=4, arch="stylegan2", **g_over):
     """The operating point's G/D configs; bf16 only from 64x64 up."""
     n16 = num_fp16_res if res >= 64 else 0
-    g_cfg = networks.generator_config(
+    g_cfg = networks_for({"arch": arch}).generator_config(
         img_resolution=res, img_channels=img_channels, channel_base=channel_base,
-        channel_max=channel_max, num_fp16_res=n16)
+        channel_max=channel_max, num_fp16_res=n16, **g_over)
     d_cfg = networks.discriminator_config(
         img_resolution=res, img_channels=img_channels, channel_base=channel_base,
         channel_max=channel_max, mbstd_group_size=mbstd_group_size, num_fp16_res=n16)
@@ -47,12 +51,13 @@ def build_synthetic_setup(device, res=256, img_channels=2, channel_base=32768,
                           channel_max=512, num_epochs=10, opt_lr=0.01,
                           crop_size=64, w_pix=0.1, w_lpips=10.0, w_latent=0.001,
                           w_disc=0.01, manifold_items=64, num_fp16_res=4,
-                          remat=False, seed=0, impl='auto'):
+                          remat=False, seed=0, impl='auto', arch="stylegan2", **g_over):
     """Returns (fns, bundle, g_cfg): the walk functions (taking the bundle
     as first argument) and the device state, on seeded synthetic weights."""
     g_cfg, d_cfg = make_gd_configs(res, img_channels, channel_base, channel_max,
-                                   num_fp16_res)
-    G = networks.Generator(g_cfg, seed=seed, impl=impl).to(device).eval().requires_grad_(False)
+                                   num_fp16_res, arch=arch, **g_over)
+    G = networks_for(g_cfg).Generator(g_cfg, seed=seed, impl=impl).to(device).eval() \
+        .requires_grad_(False)
     D = networks.Discriminator(d_cfg, seed=seed + 1, impl=impl).to(device).eval() \
         .requires_grad_(False)
     vgg_params = vgg.init_vgg(seed + 2, device) if w_lpips > 0 else None
@@ -90,12 +95,14 @@ def build_synthetic_setup(device, res=256, img_channels=2, channel_base=32768,
 def build_policy_workspace(root, res=256, batch_size=32, num_epochs=10,
                            opt_lr=0.01, crop_size=64, channel_base=32768,
                            channel_max=512, num_fp16_res=4, n_patients=4,
-                           slices_per_patient=24, step=10, seed=0):
+                           slices_per_patient=24, step=10, seed=0, arch="stylegan2",
+                           **g_over):
     """Write a synthetic workspace under `root` (native checkpoint from
     seeded weights, image zip, inversion zip) and return the AugOptions
     argv that runs the LatentAugment policy on it (without --device,
     which defaults to cuda). Images and codes come from
-    np.random.RandomState(seed), as the JAX package's does."""
+    np.random.RandomState(seed), as the JAX package's does; with
+    arch="stylegan3" the checkpoint holds an alias-free G."""
     dataset = "PolicyBench"
     dataset_name = f"PolicyBench-images-{res}"
     w_name = f"PolicyBench-inv-{res}"
@@ -104,9 +111,9 @@ def build_policy_workspace(root, res=256, batch_size=32, num_epochs=10,
     os.makedirs(ddir, exist_ok=True)
 
     g_cfg, d_cfg = make_gd_configs(res, len(MODALITIES), channel_base, channel_max,
-                                   num_fp16_res)
+                                   num_fp16_res, arch=arch, **g_over)
     ckpt = os.path.join(root, "policy_ckpt.pkl")
-    checkpoint.save_checkpoint(ckpt, networks.Generator(g_cfg, seed=seed),
+    checkpoint.save_checkpoint(ckpt, networks_for(g_cfg).Generator(g_cfg, seed=seed),
                                networks.Discriminator(d_cfg, seed=seed + 1))
 
     rng = np.random.RandomState(seed)

@@ -38,27 +38,49 @@ def _nvcc():
     return path
 
 
-def load_cuda_library(source):
-    """Compile `csrc/<source>` for sm_90a into a shared library with a plain
-    C interface (once per source content) and load it with ctypes."""
-    if source in _LIBS:
-        return _LIBS[source]
+def _library_path(source):
+    """(source path, library path): the library is named by the source's
+    content, so an edited source is rebuilt."""
     src = os.path.join(CSRC_DIR, source)
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     out_dir = os.path.join(BUILD_DIR, "kernels")
     os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{digest}.so")
-    if not os.path.isfile(lib_path):
+    return src, os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{digest}.so")
+
+
+def build_cuda_libraries(sources):
+    """Compile each `csrc/<source>` for sm_90a into a shared library with a
+    plain C interface, one nvcc per source, all running at once; skips
+    those already built."""
+    jobs = []
+    for source in sources:
+        src, lib_path = _library_path(source)
+        if os.path.isfile(lib_path):
+            continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-o", tmp, src]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}) for {src}:\n"
-                               f"{r.stdout}\n{r.stderr}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-    lib = ctypes.CDLL(lib_path)
+        jobs.append((src, lib_path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, lib_path, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {src}:\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_cuda_library(source):
+    """Build `csrc/<source>` if needed (build_cuda_libraries) and load it
+    with ctypes, once per process."""
+    if source in _LIBS:
+        return _LIBS[source]
+    build_cuda_libraries([source])
+    lib = ctypes.CDLL(_library_path(source)[1])
     _LIBS[source] = lib
     return lib

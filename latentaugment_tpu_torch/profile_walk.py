@@ -1,12 +1,12 @@
 """Where the time of one latent walk goes, layer by layer.
 
-    python -m latentaugment_tpu_torch.profile_walk [--impl auto|ref ...]
-        [--out chiprun_out/profile_walk.json]
+    python -m latentaugment_tpu_torch.profile_walk [--arch stylegan2|stylegan3]
+        [--impl auto|ref ...] [--batch N] [--out chiprun_out/profile_walk.json]
 
 At the operating point of `benchmark.build_synthetic_setup` (256x256, 2
 modalities, channel_base 32768, channel_max 512, bf16 in the top 4
-blocks, LPIPS VGG16 on 64x64 crops, K=10, batch 32, seeded weights) it
-times, for each --impl:
+blocks (StyleGAN3: from layer 3 on), LPIPS VGG16 on 64x64 crops, K=10,
+batch 32 (StyleGAN3: 16), seeded weights) it times, for each --impl:
 
   * the layers of one Adam step, forward and forward+backward: G
     synthesis (w.r.t. w), D (w.r.t. the image), LPIPS VGG16 (w.r.t. its
@@ -14,8 +14,8 @@ times, for each --impl:
     (median of --reps runs, CUDA events);
   * one walk under torch.profiler: the device's busy time (the union of
     its kernels' intervals) against the wall time, so the idle share, and
-    the device time by kind of kernel (the hand-written K1 and K2, cuDNN
-    convolutions and layout transforms, elementwise ops, ...).
+    the device time by kind of kernel (the hand-written K1, K2 and K3,
+    cuDNN convolutions and layout transforms, elementwise ops, ...).
 
 It prints one line per --impl and writes all of it as JSON to --out.
 `--device cpu` with a small `--res` runs the same code path on the CPU
@@ -37,6 +37,7 @@ from .models import vgg
 
 # Kernel name fragments -> kind, first match wins.
 _KINDS = (
+    ("K3 filtered_lrelu", ("filtered_lrelu_kernel",)),
     ("K2 upfirdn2d", ("upfirdn2d_kernel",)),
     ("K1 bias_act", ("bias_act_fwd", "bias_act_bwd")),
     ("plain FIR (depthwise conv)", ("conv_depthwise2d",)),
@@ -136,7 +137,8 @@ def profile_walk(device, impl="auto", batch=32, reps=10, seed=0, **setup):
     lp_in = torch.rand([batch * n_modes, 3, crop, crop], generator=gen, device=device) * 255
     layers = {"G": (g_fn, w0), "D": (D, img),
               "VGG": (lambda x: vgg.lpips_features(bundle["vgg"], x), lp_in)}
-    out = {"impl": impl, "batch": batch, "res": res, "reps": reps}
+    out = {"arch": g_cfg.get("arch", "stylegan2"), "impl": impl, "batch": batch, "res": res,
+           "reps": reps}
     for name, (f, x) in layers.items():
         out[f"{name}_fwd_ms"] = timed(lambda: fwd_bwd(f, x, False))
         out[f"{name}_fwd_bwd_ms"] = timed(lambda: fwd_bwd(f, x, True))
@@ -166,9 +168,11 @@ def profile_walk(device, impl="auto", batch=32, reps=10, seed=0, **setup):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="stylegan2", choices=["stylegan2", "stylegan3"])
     ap.add_argument("--impl", nargs="+", default=["auto", "ref"], choices=["auto", "ref"])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 32 for stylegan2, 16 for stylegan3")
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--channel_base", type=int, default=32768)
     ap.add_argument("--channel_max", type=int, default=512)
@@ -183,12 +187,13 @@ def main(argv=None):
             raise RuntimeError("--device cuda: CUDA is not available")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    batch = args.batch or (16 if args.arch == "stylegan3" else 32)
     results = {}
     for impl in args.impl:
-        r = profile_walk(device, impl=impl, batch=args.batch, reps=args.reps,
+        r = profile_walk(device, impl=impl, batch=batch, reps=args.reps,
                          res=args.res, channel_base=args.channel_base,
                          channel_max=args.channel_max, crop_size=args.crop_size,
-                         num_epochs=args.num_epochs)
+                         num_epochs=args.num_epochs, arch=args.arch)
         results[impl] = r
         print(json.dumps({k: v for k, v in r.items() if k != "top_kernels"}), flush=True)
     if args.out:

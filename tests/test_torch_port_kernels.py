@@ -11,12 +11,23 @@ of them in a gradient; the kernels round once). The clamp is tested in
 float32 only: in bf16 the plain version clamps the rounded value and lets
 the gradient through at |y| == clamp, while the kernel masks on the saved
 output (|y| < clamp), so rounding ties differ by design.
+
+filtered_lrelu (K3) is held at 2e-2 in bfloat16 for values too: K3 rounds
+once, the plain version at each of its four stages. Its backward is held
+against the plain backward at the plain version's own sign/clamp record
+(`_record_ref`): lrelu's derivative jumps at 0, and where an up-rate value
+lies within rounding of 0 the two sides may take different branches (in
+bf16 about one pixel in a thousand), which moves single gradients by a
+good part of their range. K3's own record may differ from the plain one
+only on such a sliver of pixels, and the public path must equal the
+backward kernel at K3's own record.
 """
 
 import pytest
 import torch
 
 from latentaugment_tpu_torch.ops import bias_act as ba
+from latentaugment_tpu_torch.ops import filtered_lrelu as fl
 from latentaugment_tpu_torch.ops import upfirdn2d as up
 
 pytestmark = pytest.mark.gpu
@@ -137,3 +148,105 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError, match="4 taps"):
         up.upfirdn2d(torch.zeros([1, 1, 16, 16], device=cuda), f8)
     assert up.launches["upfirdn2d"] == n
+
+
+# filtered_lrelu (K3): the kinds of layer of the StyleGAN3-T 256 walk, at a
+# few channels: (x shape, up taps, down taps, up, down, padding, gain, slope).
+FLRELU_CASES = {
+    "L0 up2 pad(9,8)": ([2, 4, 38, 38], 12, 12, 2, 2, (9, 8, 9, 8), None, 0.2),
+    "L10 up4 crop(-6,-9)": ([2, 4, 150, 150], 24, 12, 4, 2, (-6, -9, -6, -9), None, 0.2),
+    "L13 critical crop(-11,-12)": ([2, 3, 278, 278], 12, 12, 2, 2, (-11, -12, -11, -12),
+                                   None, 0.2),
+    "toRGB": ([2, 2, 256, 256], 1, 1, 1, 1, (0, 0, 0, 0), 1.0, 1.0),
+    "asymmetric pad, down 1": ([3, 5, 17, 13], 12, 6, 2, 1, (5, 6, 4, 7), 1.0, 0.1),
+}
+TOL_FL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RECORD_SLIVER = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _flrelu_inputs(cuda, name, dtype, seed):
+    """x, random asymmetric taps scaled so the up-rate values are O(|x|),
+    and a bias."""
+    shape, tu, td, up_, down, padding, gain, slope = FLRELU_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    fu = torch.randn([tu], generator=g, device=cuda) / (tu * up_) ** 0.5 if tu > 1 else None
+    fd = torch.randn([td], generator=g, device=cuda) / td ** 0.5 if td > 1 else None
+    b = torch.randn([shape[1]], generator=g, device=cuda).to(dtype)
+    return x, fu, fd, b, dict(up=up_, down=down, padding=padding, gain=gain, slope=slope)
+
+
+def _check_flrelu(cuda, name, dtype, flip, clamp=None, seed=0):
+    x, fu, fd, b, kw = _flrelu_inputs(cuda, name, dtype, seed)
+    kw.update(clamp=clamp, flip_filter=flip)
+
+    def fn(x, impl):
+        return fl.filtered_lrelu(x, fu, fd, b, impl=impl, **kw)
+
+    y_r = fn(x, "ref")
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(y_r.shape, generator=g, device=cuda).to(dtype)
+    n = dict(fl.launches)
+    y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
+    assert fl.launches["filtered_lrelu_fwd"] == n["filtered_lrelu_fwd"] + 1
+    assert fl.launches["filtered_lrelu_bwd"] == n["filtered_lrelu_bwd"] + 1
+    y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
+    assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
+    assert _rel_err(y_k, y_r) <= TOL_FL[dtype]
+    # The backward kernel at the plain version's record: same branches.
+    gain = kw["gain"] if kw["gain"] is not None else 2 ** 0.5
+    pad, up_, down, slope = kw["padding"], kw["up"], kw["down"], kw["slope"]
+    rec_r = fl._record_ref(x, fu, b, up_, pad, gain, slope, clamp, flip)
+    dx_m = fl._backward_kernel(dy, rec_r, tuple(x.shape[2:]), fu, fd, up_, down, pad, gain,
+                               slope, flip)
+    assert _rel_err(dx_m, dx_r) <= TOL_GRAD[dtype]
+    # K3's own record differs from the plain one only on a sliver of pixels,
+    # and the public path is the backward kernel at that record.
+    _, rec_k = fl._forward_kernel(x, fu, fd, b, up_, down, pad, gain, slope, clamp, flip,
+                                  need_record=True)
+    assert rec_k.shape == rec_r.shape
+    assert (rec_k != rec_r).float().mean().item() <= RECORD_SLIVER[dtype]
+    dx_own = fl._backward_kernel(dy, rec_k, tuple(x.shape[2:]), fu, fd, up_, down, pad, gain,
+                                 slope, flip)
+    assert torch.equal(dx_k, dx_own)
+    return x, fu, fd, b, kw
+
+
+@pytest.mark.parametrize("flip", [False, True], ids=["conv", "corr"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(FLRELU_CASES))
+def test_filtered_lrelu_kernel_matches_plain(cuda, name, dtype, flip):
+    _check_flrelu(cuda, name, dtype, flip)
+
+
+@pytest.mark.parametrize("name", ["L0 up2 pad(9,8)", "L10 up4 crop(-6,-9)", "toRGB"])
+def test_filtered_lrelu_kernel_clamp_and_bias_grad(cuda, name):
+    """float32 with the clamp engaged (the up-rate values are O(1), the
+    clamp 0.5); the bias gradient is dx summed over N, H, W."""
+    x, fu, fd, b, kw = _check_flrelu(cuda, name, torch.float32, flip=False, clamp=0.5, seed=3)
+    rec = fl._record_ref(x, fu, b, kw["up"], kw["padding"], kw["gain"] or 2 ** 0.5,
+                         kw["slope"], 0.5, False)
+    assert (rec & 2).float().mean().item() > 0.05  # the clamp engages
+    outs = []
+    for impl in ("auto", "ref"):
+        bg = b.detach().requires_grad_(True)
+        y = fl.filtered_lrelu(x, fu, fd, bg, impl=impl, **kw)
+        outs.append(torch.autograd.grad(y.square().sum(), bg)[0])
+    assert _rel_err(outs[0], outs[1]) <= 1e-4
+
+
+def test_filtered_lrelu_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros([1, 2, 16, 16], device=cuda)
+    fu = torch.ones([12], device=cuda) / 12
+    n = dict(fl.launches)
+    with pytest.raises(NotImplementedError, match="1-D"):
+        fl.filtered_lrelu(x, torch.ones([4, 4], device=cuda), fu, up=2, down=2, padding=5)
+    with pytest.raises(ValueError, match="constants"):
+        fl.filtered_lrelu(x, fu.clone().requires_grad_(True), fu, up=2, down=2, padding=5)
+    with pytest.raises(TypeError):
+        fl.filtered_lrelu(x.half(), fu, fu, up=2, down=2, padding=5)
+    assert fl.launches == n
+    # The plain version takes the 2-D (radial) filters on the card.
+    y = fl.filtered_lrelu(x, torch.ones([4, 4], device=cuda), fu, up=2, down=2, padding=5,
+                          impl="ref")
+    assert torch.isfinite(y).all() and fl.launches == n

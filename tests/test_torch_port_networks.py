@@ -223,11 +223,14 @@ def test_checkpoint_loader_refuses_code(tmp_path):
 
 
 def test_conditional_and_sg3_raise():
+    """Conditional StyleGAN2 is not ported and raises; the arch dispatch
+    returns the alias-free module for 'stylegan3' and StyleGAN2 otherwise."""
     with pytest.raises(NotImplementedError):
         net_t.Generator(net_t.generator_config(c_dim=3, **CFG))
     from latentaugment_tpu_torch.models import networks_for
-    with pytest.raises(NotImplementedError):
-        networks_for({"arch": "stylegan3"})
+    from latentaugment_tpu_torch.models.stylegan3 import networks as net3_t
+    assert networks_for({"arch": "stylegan3"}) is net3_t
+    assert networks_for({}) is net_t and networks_for(net_t.generator_config(**CFG)) is net_t
 
 
 @pytest.mark.parametrize("input_range", ["0_255", "unit"])

@@ -1,6 +1,6 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing the
-port and running its policy on the CPU loads no `jax` module and nothing
-of the JAX package `latentaugment_tpu`. And `--device cuda` without CUDA
+port, running its policy and an alias-free generator on the CPU loads no
+`jax` module and nothing of the JAX package `latentaugment_tpu`. And `--device cuda` without CUDA
 raises instead of running on the CPU."""
 
 import os
@@ -17,6 +17,8 @@ import sys, tempfile
 import numpy as np
 import latentaugment_tpu_torch
 from latentaugment_tpu_torch import augments, benchmark, data, models, options, utils
+from latentaugment_tpu_torch.models.stylegan3 import filters, networks as sg3
+from latentaugment_tpu_torch.ops import filtered_lrelu
 from latentaugment_tpu_torch.augments import create_augment
 from latentaugment_tpu_torch.data import create_dataset
 from latentaugment_tpu_torch.options import AugOptions
@@ -33,6 +35,12 @@ augment.forward()
 out = augment.get_output()
 assert out["A"].shape == (4, 1, 32, 32) and np.isfinite(out["A"]).all()
 assert not np.allclose(augment.get_latent_output()["w"], augment.get_latent_input()["w"])
+# The alias-free generator (plain filtered_lrelu on the CPU).
+import torch
+G = sg3.Generator(sg3.generator_config(img_resolution=32, num_layers=3, channel_base=256,
+                                       channel_max=8, z_dim=16, w_dim=16))
+with torch.no_grad():
+    assert torch.isfinite(G(torch.randn(2, 16))).all()
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "latentaugment_tpu" or m.startswith("latentaugment_tpu."))

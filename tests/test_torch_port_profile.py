@@ -27,7 +27,19 @@ def test_profile_walk_runs_small_on_cpu(tmp_path):
         assert "idle_share" not in r  # no device on the CPU
 
 
+def test_profile_walk_runs_sg3_small_on_cpu(tmp_path):
+    """--arch stylegan3 profiles the alias-free walk (batch given here; its
+    default is 16)."""
+    out = tmp_path / "profile_sg3.json"
+    assert profile_walk.main(SMALL + ["--arch", "stylegan3", "--impl", "auto",
+                                      "--out", str(out)]) == 0
+    r = json.loads(out.read_text())["auto"]
+    assert r["arch"] == "stylegan3" and r["batch"] == 4
+    assert r["G_fwd_bwd_ms"] > 0 and r["walk_ms"] > 0
+
+
 @pytest.mark.parametrize("name,kind", [
+    ("void filtered_lrelu_kernel<__nv_bfloat16>(...)", "K3 filtered_lrelu"),
     ("void upfirdn2d_kernel<__nv_bfloat16>(__nv_bfloat16 const*, ...)", "K2 upfirdn2d"),
     ("bias_act_bwd", "K1 bias_act"),
     ("void at::native::conv_depthwise2d_forward_kernel<2, float, int>(...)",
