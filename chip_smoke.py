@@ -12,7 +12,12 @@ line.
      sources (the two nvcc builds run side by side) and holds each,
      forward and input gradient, against its plain PyTorch version at the
      shapes the StyleGAN2 and StyleGAN3 walks give it, in float32 (TF32
-     off) and bfloat16, timing both (median of 20, CUDA events).
+     off) and bfloat16, timing both (median of 20, CUDA events), with
+     each case's bound (the larger of its bytes over 3.35 TB/s and its
+     fp32 operations over 67 TFLOP/s, from the wrappers' `work`) and,
+     for the two upfirdn2d cases one PyTorch call computes (a depthwise
+     `F.conv2d` with the 4x4 filter), that call's time. filtered_lrelu's
+     record (2 bits per up-rate pixel) is compared unpacked.
   2. Small reference: a 32x32 StyleGAN2 walk and a 64x64 StyleGAN3 walk
      (K=3, float32) on the CPU with the plain versions against the same
      walks on the card through the kernels.
@@ -21,8 +26,9 @@ line.
      the top 4 blocks, LPIPS VGG16 on 64x64 crops, K=10 Adam steps, batch
      32) through AugOptions -> create_dataset -> create_augment ->
      set_input / forward / get_output for 3 batches, with the kernels'
-     launch counters reset just before and read just after; then the
-     same with --impl ref.
+     launch counters reset just before and read just after (no launch
+     may have gone through a kernel's `generic` variant); then the same
+     with --impl ref.
   4. The StyleGAN3 slice: the same policy over an alias-free SG3-T
      checkpoint (same widths, bf16 from layer 3 on, batch 16, no remat),
      3 batches with the kernels, then with --impl ref; where the plain
@@ -56,8 +62,12 @@ TOL_GRAD = {"float32": 1e-5, "bfloat16": 2e-2}   # bf16 plain gradients round 3-
 TOL_FL = {"float32": 1e-5, "bfloat16": 2e-2}
 RECORD_SLIVER = {"float32": 1e-5, "bfloat16": 1e-2}
 SQRT_HALF = math.sqrt(0.5)
+# The card's published peaks (H100 SXM): device memory, fp32 outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 BATCH, RES, N_BATCHES = 32, 256, 3
 SG3_BATCH = 16
+# Launch counts by kernel variant, by kernel name; main() fills it.
+VARIANT_COUNTERS = {}
 
 
 def log(msg):
@@ -120,21 +130,54 @@ def check_close(rec, key, got, want, tol):
     rec[f"{key}_rel_err"] = diff / max(scale, 1e-30)
 
 
+def bound_ms(nbytes, macs=0):
+    """(least ms the card could take, 'bytes' or 'operations'): each input
+    byte read once and each output byte written once at the memory rate,
+    against two operations per multiply-add at the fp32 rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 2 * macs / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def set_bounds(rec, fwd, bwd):
+    """Note a case's forward and backward bounds, each (bytes, multiply-adds)."""
+    (rec["bound_fwd_ms"], rec["bound_fwd_by"]), (rec["bound_bwd_ms"], rec["bound_bwd_by"]) = \
+        bound_ms(*fwd), bound_ms(*bwd)
+
+
 def finish_record(rec, ms, records, extra=""):
     rec["fwd_ms"], rec["bwd_ms"] = ms["auto"]
     rec["plain_fwd_ms"], rec["plain_bwd_ms"] = ms["ref"]
     records.append(rec)
+    lib = (f", library {rec['library_fwd_ms']:.3f} / {rec['library_bwd_ms']:.3f}"
+           if rec.get("library_fwd_ms") is not None else "")
     log(f"  {rec['case']:34s} {rec['dtype']:8s} fwd err {rec['fwd_rel_err']:.2e} bwd err "
         f"{rec['bwd_rel_err']:.2e}{extra} | fwd {rec['fwd_ms']:.3f} ms (plain "
-        f"{rec['plain_fwd_ms']:.3f}) bwd {rec['bwd_ms']:.3f} ms (plain {rec['plain_bwd_ms']:.3f})")
+        f"{rec['plain_fwd_ms']:.3f}) bwd {rec['bwd_ms']:.3f} ms (plain {rec['plain_bwd_ms']:.3f}) "
+        f"| bound {rec['bound_fwd_ms']:.3f} / {rec['bound_bwd_ms']:.3f} ms{lib}")
 
 
-def compare(name, fn, x, dy_seed, dtype_name, records):
-    """Kernel vs plain: values and dx, timed."""
-    ys, dxs, ms, _ = run_both(fn, x, dy_seed)
+def compare(name, fn, x, dy_seed, dtype_name, records, bounds, library=None):
+    """Kernel vs plain: values and dx, timed. `bounds` are the forward's and
+    the backward's (bytes, multiply-adds); `library`, where one PyTorch
+    call computes the same function, is that call as x -> y: it is timed
+    and held to the plain version, and the port never calls it."""
+    import torch
+
+    ys, dxs, ms, dy = run_both(fn, x, dy_seed)
     rec = {"case": name, "dtype": dtype_name, "shape": list(x.shape)}
     check_close(rec, "fwd", ys["auto"], ys["ref"], TOL[dtype_name])
     check_close(rec, "bwd", dxs["auto"], dxs["ref"], TOL_GRAD[dtype_name])
+    set_bounds(rec, *bounds)
+    rec["library_fwd_ms"] = rec["library_bwd_ms"] = None
+    if library is not None:
+        xg = x.detach().requires_grad_(True)
+        y = library(xg)
+        check_close(rec, "library", y.detach(), ys["ref"], TOL_GRAD[dtype_name])
+        with torch.no_grad():
+            rec["library_fwd_ms"] = median_ms(lambda: library(x))
+        rec["library_bwd_ms"] = median_ms(
+            lambda: torch.autograd.grad(y, xg, dy, retain_graph=True))
+        del y, xg
     finish_record(rec, ms, records)
     return rec
 
@@ -167,25 +210,50 @@ def phase_kernels(torch, ba, up, dev):
         scale, has_bias = kw.pop("scale", 1.0), kw.pop("bias", True)
         x = randn(shape, dtype, scale)
         b = randn([shape[1]], dtype) if has_bias else None
+        # Forward: x in, y out; backward: dy and the saved y in, dx out.
+        nbytes = x.numel() * x.element_size()
         rec = compare(name, lambda x, impl: ba.bias_act(x, b, impl=impl, **kw), x,
-                      len(bias_recs), names[dtype], bias_recs)
+                      len(bias_recs), names[dtype], bias_recs,
+                      ((2 * nbytes, 0), (3 * nbytes, 0)))
         rec["kw"] = kw
 
     # upfirdn2d: every FIR blur and resample of G and D.
     f = up.setup_filter([1, 3, 3, 1], device=dev, separable=True)
+    f2d = torch.outer(f, f).flip([0, 1])  # conv2d correlates; the op convolves
+    # (name, shape, dtype, arguments, the forward's and the backward's variant,
+    # F.conv2d's stride and padding where one such call computes the case)
     cases = [
         ("G blur after up-conv (257->256)", [BATCH, 128, RES + 1, RES + 1], bf16,
-         dict(padding=1, gain=4)),
-        ("G blur after up-conv (257->256)", [BATCH, 128, RES + 1, RES + 1], f32, dict(padding=1, gain=4)),
-        ("D blur before stride-2 (256->257)", [BATCH, 128, RES, RES], bf16, dict(padding=2)),
-        ("D 1x1 skip down=2 (256->128)", [BATCH, 128, RES, RES], bf16, dict(down=2, padding=1)),
+         dict(padding=1, gain=4), ("u1d1", "u1d1"), (1, 1)),
+        ("G blur after up-conv (257->256)", [BATCH, 128, RES + 1, RES + 1], f32, dict(padding=1, gain=4),
+         ("u1d1", "u1d1"), None),
+        ("D blur before stride-2 (256->257)", [BATCH, 128, RES, RES], bf16, dict(padding=2),
+         ("u1d1", "u1d1"), None),
+        ("D 1x1 skip down=2 (256->128)", [BATCH, 128, RES, RES], bf16, dict(down=2, padding=1),
+         ("u1d2", "u2d1"), (2, 1)),
         ("skip-image upsample2d (128->256)", [BATCH, 2, RES // 2, RES // 2], f32,
-         dict(up=2, padding=(2, 1, 2, 1), gain=4)),
+         dict(up=2, padding=(2, 1, 2, 1), gain=4), ("u2d1", "u1d2"), None),
     ]
-    for name, shape, dtype, kw in cases:
+    for name, shape, dtype, kw, variants, conv in cases:
         x = randn(shape, dtype)
+        library = None
+        if conv is not None:
+            weight = (f2d * kw.get("gain", 1)).to(dtype)[None, None].repeat(shape[1], 1, 1, 1)
+
+            def library(x, weight=weight, conv=conv):
+                return torch.nn.functional.conv2d(x, weight, stride=conv[0], padding=conv[1],
+                                                  groups=weight.shape[0])
+        work = up.work(shape, f.shape, itemsize=x.element_size(),
+                       **{k: v for k, v in kw.items() if k != "gain"})
+        # The backward reads dy and writes dx, the same bytes; they bound both.
+        bound = (work["bytes"], work["macs"])
+        before = dict(up.variant_launches)
         rec = compare(name, lambda x, impl: up.upfirdn2d(x, f, impl=impl, **kw), x,
-                      100 + len(up_recs), names[dtype], up_recs)
+                      100 + len(up_recs), names[dtype], up_recs, (bound, bound), library)
+        used = {k for k in before if up.variant_launches[k] != before[k]}
+        if used != set(variants):
+            raise AssertionError(f"{name}: launched variants {used}, expected {variants}")
+        rec["variant"], rec["bwd_variant"] = variants
         rec["kw"] = {k: list(v) if isinstance(v, tuple) else v for k, v in kw.items()}
         del x
         torch.cuda.empty_cache()
@@ -221,6 +289,12 @@ def phase_flrelu(torch, fl, net3, dev):
         ys, dxs, ms, dy = run_both(
             lambda x, impl: fl.filtered_lrelu(x, fu, fd, b, impl=impl, **kw), x, 200 + len(recs))
         args = (kw["up"], kw["down"], kw["padding"], kw["gain"], kw["slope"])
+        tu, td = (1 if f is None else f.shape[0] for f in (fu, fd))
+        wargs = (shape, tu, td, kw["up"], kw["down"], kw["padding"])
+        # As timed: the forward under no_grad writes no record, the backward reads it.
+        wf = fl.work(*wargs, itemsize=x.element_size())
+        wb = fl.work(*wargs, backward=True, itemsize=x.element_size(), record=True)
+        before = dict(fl.variant_launches)
         rec_ref = fl._record_ref(x, fu, b, kw["up"], kw["padding"], kw["gain"], kw["slope"],
                                  kw["clamp"], False)
         dx_at_ref = fl._backward_kernel(dy, rec_ref, tuple(shape[2:]), fu, fd, *args, False)
@@ -230,7 +304,14 @@ def phase_flrelu(torch, fl, net3, dev):
         rec = {"case": name, "dtype": dn, "shape": list(shape)}
         check_close(rec, "fwd", ys["auto"], ys["ref"], TOL_FL[dn])
         check_close(rec, "bwd", dx_at_ref, dxs["ref"], TOL_GRAD[dn])
-        sliver = (rec_k != rec_ref).float().mean().item()
+        set_bounds(rec, (wf["bytes"], wf["macs"]), (wb["bytes"], wb["macs"]))
+        rec["library_fwd_ms"] = rec["library_bwd_ms"] = None  # no one PyTorch call computes it
+        mid_w = fl._geometry(tuple(shape[2:]), *wargs[1:], False)["mid_hw"][1]
+        if rec_k.shape != rec_ref.shape or rec_k.numel() != wf["record_bytes"]:
+            raise AssertionError(f"{name}: record {tuple(rec_k.shape)}, plain "
+                                 f"{tuple(rec_ref.shape)}, expected {wf['record_bytes']} bytes")
+        sliver = (fl.unpack_record(rec_k, mid_w) != fl.unpack_record(rec_ref, mid_w)) \
+            .float().mean().item()
         if sliver > RECORD_SLIVER[dn]:
             raise AssertionError(f"{name}: K3's record differs from the plain one on "
                                  f"{sliver:.2e} of the pixels (> {RECORD_SLIVER[dn]})")
@@ -238,7 +319,11 @@ def phase_flrelu(torch, fl, net3, dev):
             raise AssertionError(f"{name}: the autograd backward is not K3 at its own record")
         rec["record_mismatch_share"] = sliver
         rec["record_bytes"] = rec_k.numel()
-        finish_record(rec, ms, recs, extra=f" record {sliver:.1e}")
+        rec["variants"] = sorted(k for k in before if fl.variant_launches[k] != before[k])
+        if "generic" in rec["variants"]:
+            raise AssertionError(f"{name}: a layer of the walk went through the generic kernel")
+        finish_record(rec, ms, recs, extra=f" record {sliver:.1e} ({rec_k.numel() / 1e6:.1f} MB, "
+                                           f"{'+'.join(rec['variants'])})")
         del x, b, dy, ys, dxs, rec_ref, rec_k, dx_at_ref, dx_at_own
         torch.cuda.empty_cache()
     return recs
@@ -278,14 +363,15 @@ def run_policy(torch, argv, counters):
     """AugOptions -> create_dataset -> create_augment -> per-batch
     set_input / forward / get_output over the first N_BATCHES batches;
     returns per-batch records, the launch counts, set-up seconds and the
-    peak device memory."""
+    peak device memory. `counters` are the kernels' launch dicts; the
+    per-variant dicts (VARIANT_COUNTERS) are set to 0 with them."""
     from latentaugment_tpu_torch.augments import create_augment
     from latentaugment_tpu_torch.data import create_dataset
     from latentaugment_tpu_torch.options import AugOptions
 
     opt = AugOptions().parse(argv=argv, install_logger=False)
     dataset = create_dataset(opt)
-    for c in counters:
+    for c in (*counters, *VARIANT_COUNTERS.values()):
         c.update(dict.fromkeys(c, 0))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -373,11 +459,17 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {arch} path")
+    variants = {name: dict(c) for name, c in VARIANT_COUNTERS.items()}
+    for name, c in variants.items():
+        if c["generic"] != 0:
+            raise AssertionError(f"{arch}: {c['generic']} launches of {name} went through its "
+                                 f"generic variant: {c}")
     kernel_sps = samples_per_s(batches, batch)
     log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
         f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
-        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
-    rec = dict(arch=arch, batch=batch, launches=launches, kernel_samples_per_s=kernel_sps,
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}, by variant {variants}")
+    rec = dict(arch=arch, batch=batch, launches=launches, variant_launches=variants,
+               kernel_samples_per_s=kernel_sps,
                batch_wall_s=[b["wall"] for b in batches], setup_s=setup_s,
                peak_mem_bytes=peak,
                loss_traces=[{k: v.tolist() for k, v in b["traces"].items()} for b in batches])
@@ -445,6 +537,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
         "TF32 off for convs and matmuls")
 
+    VARIANT_COUNTERS.update(upfirdn2d=up.variant_launches, filtered_lrelu=fl.variant_launches)
     t0 = time.time()
     _build.build_cuda_libraries(["upfirdn2d.cu", "filtered_lrelu.cu"])
     log(f"  nvcc builds (side by side) took {time.time() - t0:.1f} s")
@@ -463,34 +556,33 @@ def main():
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
     fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
+    def entry(name, route, source, replaces, launches, recs, main, direction, variant):
+        """One kernel of the `kernels` line: times, bound and library time
+        are the main-path case's (`main`), the error the worst of `recs`."""
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "variant": variant,
+                "max_abs_err": max(r[f"{d}_max_abs_err"] for r in recs
+                                   for d in direction.split("+")),
+                "ms": main[f"{direction[:3]}_ms"], "plain_ms": main[f"plain_{direction[:3]}_ms"],
+                "bound_ms": main[f"bound_{direction[:3]}_ms"],
+                "bound_by": main[f"bound_{direction[:3]}_by"],
+                "library_ms": main[f"library_{direction[:3]}_ms"]}
+
+    ba_src, ba_tpu = "latentaugment_tpu_torch/ops/bias_act.py", "latentaugment_tpu/ops/bias_act.py:125"
+    fl_src = "latentaugment_tpu_torch/csrc/filtered_lrelu.cu"
+    fl_tpu = "latentaugment_tpu/ops/filtered_lrelu.py:410"
     kernels = [
-        {"name": "bias_act_fwd", "route": "triton", "source": "latentaugment_tpu_torch/ops/bias_act.py",
-         "replaces": "latentaugment_tpu/ops/bias_act.py:125",
-         "launches": slice_rec["launches"]["bias_act_fwd"],
-         "max_abs_err": max(r["fwd_max_abs_err"] for r in bias_recs),
-         "ms": ba_main["fwd_ms"], "plain_ms": ba_main["plain_fwd_ms"]},
-        {"name": "bias_act_bwd", "route": "triton", "source": "latentaugment_tpu_torch/ops/bias_act.py",
-         "replaces": "latentaugment_tpu/ops/bias_act.py:125",
-         "launches": slice_rec["launches"]["bias_act_bwd"],
-         "max_abs_err": max(r["bwd_max_abs_err"] for r in bias_recs),
-         "ms": ba_main["bwd_ms"], "plain_ms": ba_main["plain_bwd_ms"]},
-        {"name": "upfirdn2d", "route": "cuda", "source": "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
-         "replaces": "latentaugment_tpu/ops/upfirdn2d.py:564",
-         "launches": slice_rec["launches"]["upfirdn2d"],
-         "max_abs_err": max(max(r["fwd_max_abs_err"], r["bwd_max_abs_err"]) for r in up_recs),
-         "ms": up_main["fwd_ms"], "plain_ms": up_main["plain_fwd_ms"]},
-        {"name": "filtered_lrelu_fwd", "route": "cuda",
-         "source": "latentaugment_tpu_torch/csrc/filtered_lrelu.cu",
-         "replaces": "latentaugment_tpu/ops/filtered_lrelu.py:410",
-         "launches": sg3_rec["launches"]["filtered_lrelu_fwd"],
-         "max_abs_err": max(r["fwd_max_abs_err"] for r in fl_recs),
-         "ms": fl_main["fwd_ms"], "plain_ms": fl_main["plain_fwd_ms"]},
-        {"name": "filtered_lrelu_bwd", "route": "cuda",
-         "source": "latentaugment_tpu_torch/csrc/filtered_lrelu.cu",
-         "replaces": "latentaugment_tpu/ops/filtered_lrelu.py:410",
-         "launches": sg3_rec["launches"]["filtered_lrelu_bwd"],
-         "max_abs_err": max(r["bwd_max_abs_err"] for r in fl_recs),
-         "ms": fl_main["bwd_ms"], "plain_ms": fl_main["plain_bwd_ms"]},
+        entry("bias_act_fwd", "triton", ba_src, ba_tpu, slice_rec["launches"]["bias_act_fwd"],
+              bias_recs, ba_main, "fwd", None),
+        entry("bias_act_bwd", "triton", ba_src, ba_tpu, slice_rec["launches"]["bias_act_bwd"],
+              bias_recs, ba_main, "bwd", None),
+        entry("upfirdn2d", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
+              "latentaugment_tpu/ops/upfirdn2d.py:564", slice_rec["launches"]["upfirdn2d"],
+              up_recs, up_main, "fwd+bwd", up_main["variant"]),
+        entry("filtered_lrelu_fwd", "cuda", fl_src, fl_tpu,
+              sg3_rec["launches"]["filtered_lrelu_fwd"], fl_recs, fl_main, "fwd", "u4t24_d2t12"),
+        entry("filtered_lrelu_bwd", "cuda", fl_src, fl_tpu,
+              sg3_rec["launches"]["filtered_lrelu_bwd"], fl_recs, fl_main, "bwd", "u2t12_d4t24"),
     ]
 
     out_dir = os.path.join(REPO, "chiprun_out")

@@ -39,20 +39,26 @@ def _nvcc():
 
 
 def _library_path(source):
-    """(source path, library path): the library is named by the source's
-    content, so an edited source is rebuilt."""
+    """(source path, library path): the library is named by the content
+    of every file under csrc/ (the sources share headers), so an edited
+    source or header is rebuilt."""
     src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read() + b"\0")
     out_dir = os.path.join(BUILD_DIR, "kernels")
     os.makedirs(out_dir, exist_ok=True)
-    return src, os.path.join(out_dir, f"{os.path.splitext(source)[0]}-{digest}.so")
+    return src, os.path.join(
+        out_dir, f"{os.path.splitext(source)[0]}-{digest.hexdigest()[:16]}.so")
 
 
-def build_cuda_libraries(sources):
+def build_cuda_libraries(sources, resource_usage=False):
     """Compile each `csrc/<source>` for sm_90a into a shared library with a
     plain C interface, one nvcc per source, all running at once; skips
-    those already built."""
+    those already built. Returns the compilers' messages by source; with
+    `resource_usage` they hold ptxas' registers, spills and shared memory
+    per kernel (-Xptxas -v)."""
     jobs = []
     for source in sources:
         src, lib_path = _library_path(source)
@@ -60,19 +66,23 @@ def build_cuda_libraries(sources):
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, src]
-        jobs.append((src, lib_path, tmp, subprocess.Popen(
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+        if resource_usage:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", tmp, src]
+        jobs.append((source, src, lib_path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for src, lib_path, tmp, proc in jobs:
+    failed, messages = [], {}
+    for source, src, lib_path, tmp, proc in jobs:
         out, err = proc.communicate()
+        messages[source] = out + err
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) for {src}:\n{out}\n{err}")
         else:
             os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
+    return messages
 
 
 def load_cuda_library(source):

@@ -8,13 +8,22 @@ Two implementations sit side by side:
     gradient. It runs for CPU tensors and for `impl='ref'`.
   * kernel K2, `csrc/upfirdn2d.cu`, hand-written CUDA for sm_90a, built
     with nvcc at first use and called through ctypes. Forward and
-    backward are the same kernel; the backward swaps up and down, flips
+    backward are the same kernels; the backward swaps up and down, flips
     the filter and transforms the padding, as the Pallas kernel's custom
     VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614). It runs for
     every CUDA tensor unless `impl='ref'`; there is no fallback on the
     card. It takes filters of at most 4 taps per axis (StyleGAN2's
-    [1, 3, 3, 1]) and raises for larger ones. The header of the .cu file
-    says what bounds it and how.
+    [1, 3, 3, 1]) and raises for larger ones.
+
+K2 is bound by bytes (`work` counts them). `_plan` picks, from the
+geometry alone, one of the kernel's variants and its tile: `u1d1`, `u1d2`
+and `u2d1` (the separable 4-tap filter at the three rate pairs of the
+StyleGAN2 walk and its backward: a staged shared-memory tile, two
+register-blocked 1-D passes, taps as kernel parameters) or `generic`
+(2-D filters, other rates, fewer taps: one thread per output). The
+launcher refuses a plan that does not fit its variant, and nothing
+retries through another one. `variant_launches` counts launches by
+variant. The header of the .cu file says what bounds it and how.
 """
 
 import ctypes
@@ -24,10 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, _taps
 
-# Launches of kernel K2 (forward and backward), counted where launched.
+# Launches of kernel K2 (forward and backward), counted where launched,
+# in all and by the plan's variant.
 launches = {'upfirdn2d': 0}
+variant_launches = {'u1d1': 0, 'u1d2': 0, 'u2d1': 0, 'generic': 0}
 
 
 def _parse_scaling(scaling):
@@ -152,16 +163,88 @@ def _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TAPS = 4  # per axis; UPFIRDN2D_MAX_TAPS in the .cu file
+_MAX_SMEM_BYTES = 232448  # 227 KB, the most a block can take
+# Output tile (rows, columns) of the separable variants on a large map.
+_SEP4_TILES = {'u1d1': (32, 128), 'u1d2': (32, 64), 'u2d1': (32, 128)}
 
 
 def _library():
     lib = _build.load_cuda_library('upfirdn2d.cu')
     fn = lib.upfirdn2d_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
-                       + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+        i, p = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [p] * 3 + [i, ctypes.c_longlong] + [i] * 14 + [ctypes.c_float, p]
+        fn.restype = i
+        lib.upfirdn2d_sep4_launch.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 11 + [p] * 3
+        lib.upfirdn2d_sep4_launch.restype = i
+    return lib
+
+
+def _round_up(a, b):
+    return -(-a // b) * b
+
+
+def _sep4_smem_bytes(up, down, toh, tow):
+    """Shared memory of the separable kernel (sep4_smem_bytes in the .cu
+    file): the staged tile with its halo and the rows filtered along W."""
+    def window(n):
+        return (n - 1) * down + 4 if up == 1 else n // 2 + 2
+    xh, xw = window(toh), window(tow)
+    return 4 * (xh * _round_up(xw, 4) + xh * tow)
+
+
+def _plan(f_shape, up, down, out_hw):
+    """The kernel variant and tile for a filter of shape `f_shape`, rate
+    pairs `up` and `down` (x, y) and an output of `out_hw`: a dict with
+    'variant' and, for the separable variants, the output tile
+    ('toh', 'tow') and its shared memory ('smem')."""
+    sep4 = tuple(f_shape) == (4,) and up[0] == up[1] and down[0] == down[1]
+    variant = {(1, 1): 'u1d1', (1, 2): 'u1d2', (2, 1): 'u2d1'}.get((up[0], down[0])) \
+        if sep4 else None
+    if variant is None:
+        return dict(variant='generic')
+    toh, tow = _SEP4_TILES[variant]
+    toh, tow = min(toh, _round_up(out_hw[0], 2)), min(tow, _round_up(out_hw[1], 4))
+    return dict(variant=variant, toh=toh, tow=tow,
+                smem=_sep4_smem_bytes(up[0], down[0], toh, tow))
+
+
+def work(x_shape, f_shape, up=1, down=1, padding=0, itemsize=2):
+    """What one call must do whatever the kernel: bytes moved (the input
+    read once, the output written once) and multiply-adds (the two 1-D
+    passes of a separable filter, or the 2-D product, live taps only)."""
+    n, c, in_h, in_w = x_shape
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    padx0, padx1, pady0, pady1 = _parse_padding(padding)
+    fw, fh = (f_shape[0], f_shape[0]) if len(f_shape) == 1 else (f_shape[1], f_shape[0])
+    out_h = (in_h * upy + pady0 + pady1 - fh) // downy + 1
+    out_w = (in_w * upx + padx0 + padx1 - fw) // downx + 1
+    live_x, live_y = -(-fw // upx), -(-fh // upy)
+    if len(f_shape) == 1:
+        macs = in_h * out_w * live_x + out_h * out_w * live_y
+    else:
+        macs = out_h * out_w * live_x * live_y
+    return dict(bytes=n * c * (in_h * in_w + out_h * out_w) * itemsize, macs=n * c * macs,
+                out_shape=(n, c, out_h, out_w))
+
+
+def _sep4_taps(f, variant, padding, flip_filter, gain):
+    """Host arrays (tx, ty) and the origins (ox, oy) of a separable
+    launch: the 4 correlation taps and the low padding, or for up = 2 the
+    polyphase tables and the input index of their first entry. The gain
+    rides on the taps along H."""
+    taps = _taps.correlation_taps(_taps.host_taps(f), flip_filter)
+    padx0, _, pady0, _ = padding
+    if variant == 'u2d1':
+        rows_x, ox = _taps.polyphase_table(taps, 2, padx0)
+        rows_y, oy = _taps.polyphase_table(taps, 2, pady0)
+        tx = rows_x[0] + rows_x[1]
+        ty = rows_y[0] + rows_y[1]
+    else:
+        tx, ty, ox, oy = taps, taps, padx0, pady0
+    ty = tuple(t * gain for t in ty)
+    return _taps.c_floats(tx, 8), _taps.c_floats(ty, 8), ox, oy
 
 
 def _launch(x, f, up, down, padding, flip_filter, gain):
@@ -176,7 +259,6 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
         raise NotImplementedError(f"kernel K2 takes at most {_MAX_TAPS} taps per axis, "
                                   f"got a {fh}x{fw} filter; use impl='ref'")
     x = x.contiguous()
-    f = f.to(torch.float32).contiguous()
     upx, upy = up
     downx, downy = down
     padx0, padx1, pady0, pady1 = padding
@@ -186,16 +268,30 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
     if out_h <= 0 or out_w <= 0:
         raise ValueError("padded image is smaller than the filter")
     y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
-    fn = _library()
+    plan = _plan(f.shape, up, down, (out_h, out_w))
+    lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), f.data_ptr(), _DTYPE_CODE[x.dtype],
-                 n * c, in_h, in_w, out_h, out_w, upx, upy, downx, downy,
-                 padx0, pady0, fw, fh, int(f.ndim == 1), int(flip_filter),
-                 float(gain), stream)
+        if plan['variant'] == 'generic':
+            f = f.to(torch.float32).contiguous()
+            err = lib.upfirdn2d_launch(
+                x.data_ptr(), y.data_ptr(), f.data_ptr(), _DTYPE_CODE[x.dtype],
+                n * c, in_h, in_w, out_h, out_w, upx, upy, downx, downy,
+                padx0, pady0, fw, fh, int(f.ndim == 1), int(flip_filter),
+                float(gain), stream)
+        else:
+            if plan['smem'] > _MAX_SMEM_BYTES:
+                raise RuntimeError(f"upfirdn2d plan {plan} exceeds the card's shared memory")
+            tx, ty, ox, oy = _sep4_taps(f, plan['variant'], padding, flip_filter, float(gain))
+            err = lib.upfirdn2d_sep4_launch(
+                x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * c, in_h, in_w,
+                out_h, out_w, upx, downx, ox, oy, plan['toh'], plan['tow'], plan['smem'],
+                ctypes.addressof(tx), ctypes.addressof(ty), stream)
     if err != 0:
-        raise RuntimeError(f"upfirdn2d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"upfirdn2d kernel launch ({plan['variant']}) failed: "
+                           f"CUDA error {err}")
     launches['upfirdn2d'] += 1
+    variant_launches[plan['variant']] += 1
     return y
 
 

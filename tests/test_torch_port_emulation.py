@@ -1,0 +1,227 @@
+"""The port's CUDA kernel sources, compiled for the host and run on the
+CPU against the plain PyTorch versions.
+
+There is no GPU or nvcc where these tests run, but there is a C++
+compiler: `tests/cuda_host_stub/` stands in for the CUDA headers (one
+std::thread per CUDA thread, a barrier for `__syncthreads()`), so the very
+sources under `latentaugment_tpu_torch/csrc/` build into host libraries
+and the wrappers' launch paths (plans, tap tables, records, tiles) run on
+CPU tensors at small sizes. This holds the kernels' index arithmetic and
+the launchers' checks; what only the card can show (that nvcc takes the
+sources, alignment faults, times) stays with the `gpu`-marked tests and
+chip_smoke.py. Tolerances as there: 1e-5 in float32, 2e-2 in bfloat16,
+the backward at the plain version's own record.
+"""
+
+import contextlib
+import ctypes
+import os
+import shutil
+import subprocess
+import types
+
+import pytest
+import torch
+
+from latentaugment_tpu_torch.ops import _build
+from latentaugment_tpu_torch.ops import filtered_lrelu as fl
+from latentaugment_tpu_torch.ops import upfirdn2d as up
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RECORD_SLIVER = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture(scope="module")
+def host_libraries(tmp_path_factory):
+    """csrc/*.cu built by the host compiler against the stand-in headers."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    out = tmp_path_factory.mktemp("host_kernels")
+    libs = {}
+    for source in ("upfirdn2d.cu", "filtered_lrelu.cu"):
+        lib = out / (source[:-3] + ".so")
+        cmd = [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-w",
+               "-I", os.path.join(HERE, "cuda_host_stub"), "-x", "c++",
+               os.path.join(_build.CSRC_DIR, source), "-o", str(lib)]
+        done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        assert done.returncode == 0, done.stderr
+        libs[source] = ctypes.CDLL(str(lib))
+    return libs
+
+
+@pytest.fixture
+def emulated(host_libraries, monkeypatch):
+    """The wrappers' launch paths on CPU tensors: the host libraries in
+    place of the nvcc-built ones, no device guard, stream 0."""
+    for source, lib in host_libraries.items():
+        monkeypatch.setitem(_build._LIBS, source, lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+# filtered_lrelu: (x shape, up taps, down taps, up, down, padding, gain,
+# slope, forward variant, backward variant). One or two planes: every
+# block costs 256 host threads.
+FLRELU_CASES = {
+    "L0 up2 pad(9,8)": ([1, 2, 38, 38], 12, 12, 2, 2, (9, 8, 9, 8), 2 ** 0.5, 0.2,
+                        "u2t12_d2t12", "u2t12_d2t12"),
+    "L3 up4 crop(-6,-9)": ([1, 2, 38, 38], 24, 12, 4, 2, (-6, -9, -6, -9), 2 ** 0.5, 0.2,
+                           "u4t24_d2t12", "u2t12_d4t24"),
+    "L13 crop(-11,-12), smaller": ([1, 1, 70, 70], 12, 12, 2, 2, (-11, -12, -11, -12),
+                                   2 ** 0.5, 0.2, "u2t12_d2t12", "u2t12_d2t12"),
+    "asymmetric pad, up2 down2": ([1, 2, 41, 35], 12, 12, 2, 2, (7, 10, 4, 9), 1.3, 0.1,
+                                  "u2t12_d2t12", "u2t12_d2t12"),
+    "out_w a multiple of the tile": ([1, 1, 38, 50], 12, 12, 2, 2, (9, 8, 9, 8), 1.3, 0.1,
+                                     "u2t12_d2t12", "u2t12_d2t12"),
+    "toRGB": ([2, 2, 20, 23], 1, 1, 1, 1, (0, 0, 0, 0), 1.0, 1.0, "u1t1_d1t1", "u1t1_d1t1"),
+    "asymmetric pad, down 1": ([2, 3, 17, 13], 12, 6, 2, 1, (5, 6, 4, 7), 1.0, 0.1,
+                               "generic", "generic"),
+    "up 1, down 2": ([1, 2, 30, 27], 1, 12, 1, 2, (3, 4, 5, 2), 1.0, 0.1,
+                     "generic", "generic"),
+}
+FLRELU_MODES = {"f32-conv": (torch.float32, False, None), "f32-corr-clamp": (torch.float32, True, 0.5),
+                "bf16-conv": (torch.bfloat16, False, None)}
+
+
+@pytest.mark.parametrize("mode", list(FLRELU_MODES))
+@pytest.mark.parametrize("name", list(FLRELU_CASES))
+def test_filtered_lrelu_sources_match_plain(emulated, name, mode):
+    shape, tu, td, up_, down, pad, gain, slope, fwd_variant, bwd_variant = FLRELU_CASES[name]
+    dtype, flip, clamp = FLRELU_MODES[mode]
+    g = torch.Generator().manual_seed(len(name))
+    x = torch.randn(shape, generator=g).to(dtype)
+    fu = torch.randn([tu], generator=g) / (tu * up_) ** 0.5 if tu > 1 else None
+    fd = torch.randn([td], generator=g) / td ** 0.5 if td > 1 else None
+    b = torch.randn([shape[1]], generator=g).to(dtype)
+
+    xr = x.clone().requires_grad_(True)
+    y_r = fl._filtered_lrelu_ref(xr, fu, fd, b, up_, down, pad, gain, slope, clamp, flip)
+    dy = torch.randn(y_r.shape, generator=g).to(dtype)
+    dx_r, = torch.autograd.grad(y_r, xr, dy)
+    rec_r = fl._record_ref(x, fu, b, up_, pad, gain, slope, clamp, flip)
+
+    n, nv = dict(fl.launches), dict(fl.variant_launches)
+    y_k, rec_k = fl._forward_kernel(x, fu, fd, b, up_, down, pad, gain, slope, clamp, flip,
+                                    need_record=True)
+    dx_k = fl._backward_kernel(dy, rec_r, tuple(shape[2:]), fu, fd, up_, down, pad, gain,
+                               slope, flip)
+    assert fl.launches == {"filtered_lrelu_fwd": n["filtered_lrelu_fwd"] + 1,
+                           "filtered_lrelu_bwd": n["filtered_lrelu_bwd"] + 1}
+    nv[fwd_variant] += 1
+    nv[bwd_variant] += 1
+    assert fl.variant_launches == nv
+    assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
+    assert _rel_err(y_k, y_r.detach()) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL[dtype]
+    mid_w = fl._geometry(tuple(shape[2:]), tu, td, up_, down, pad, False)["mid_hw"][1]
+    assert rec_k.shape == rec_r.shape
+    differ = fl.unpack_record(rec_k, mid_w) != fl.unpack_record(rec_r, mid_w)
+    assert differ.float().mean().item() <= RECORD_SLIVER[dtype]
+    if clamp is not None:
+        assert (fl.unpack_record(rec_k, mid_w) & 2).float().mean().item() > 0.05
+    # Without the record the values are the same (the final synthesis under no_grad).
+    y_n, none = fl._forward_kernel(x, fu, fd, b, up_, down, pad, gain, slope, clamp, flip,
+                                   need_record=False)
+    assert none is None and torch.equal(y_n, y_k)
+
+
+UPFIRDN_CASES = {
+    "G blur": (dict(up=1, down=1, padding=(1, 1, 1, 1), gain=4), "u1d1", "u1d1"),
+    "D blur": (dict(up=1, down=1, padding=(2, 2, 2, 2), gain=1), "u1d1", "u1d1"),
+    "D skip": (dict(up=1, down=2, padding=(1, 1, 1, 1), gain=1), "u1d2", "u2d1"),
+    "upsample2d": (dict(up=2, down=1, padding=(2, 1, 2, 1), gain=4), "u2d1", "u1d2"),
+    "up 2, odd pad, corr": (dict(up=2, down=1, padding=(1, 2, 3, 0), gain=4, flip_filter=True),
+                            "u2d1", "u1d2"),
+    "down 2, crop, corr": (dict(up=1, down=2, padding=(-1, 3, 0, 2), gain=2, flip_filter=True),
+                           "u1d2", "u2d1"),
+    "up 2 down 2": (dict(up=2, down=2, padding=(-1, 3, 0, 2), gain=2, flip_filter=True),
+                    "generic", "generic"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [[2, 2, 17, 13], [1, 1, 40, 141]], ids=["17x13", "40x141"])
+@pytest.mark.parametrize("name", list(UPFIRDN_CASES))
+def test_upfirdn2d_sources_match_plain(emulated, name, shape, dtype):
+    kw, fwd_variant, bwd_variant = UPFIRDN_CASES[name]
+    # Asymmetric taps where the case flips, so that the flip shows.
+    f = up.setup_filter([1.0, 2.0, 4.0, 0.5] if kw.get("flip_filter") else [1, 3, 3, 1],
+                        separable=True)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=g).to(dtype)
+    args = (up._parse_scaling(kw["up"]), up._parse_scaling(kw["down"]),
+            up._parse_padding(kw["padding"]), bool(kw.get("flip_filter", False)),
+            float(kw["gain"]))
+    xr = x.clone().requires_grad_(True)
+    y_r = up._upfirdn2d_ref(xr, f, kw["up"], kw["down"], kw["padding"], args[3], kw["gain"])
+    dy = torch.randn(y_r.shape, generator=g).to(dtype)
+    dx_r, = torch.autograd.grad(y_r, xr, dy)
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    xk = x.clone().requires_grad_(True)
+    y_k = up._Upfirdn2dFunction.apply(xk, f, *args)
+    dx_k, = torch.autograd.grad(y_k, xk, dy)
+    nv[fwd_variant] += 1
+    nv[bwd_variant] += 1
+    assert up.launches["upfirdn2d"] == n + 2 and up.variant_launches == nv
+    assert y_k.shape == y_r.shape and y_k.dtype == dtype
+    assert _rel_err(y_k, y_r.detach()) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL[dtype]
+
+
+def test_upfirdn2d_2d_filter_takes_the_generic_kernel(emulated):
+    f = up.setup_filter([1, 3, 3, 1], separable=False)
+    x = torch.randn([2, 2, 17, 13], generator=torch.Generator().manual_seed(2))
+    nv = dict(up.variant_launches)
+    y_k = up._launch(x, f, (1, 1), (1, 1), (1, 1, 1, 1), False, 4.0)
+    nv["generic"] += 1
+    assert up.variant_launches == nv
+    assert _rel_err(y_k, up._upfirdn2d_ref(x, f, 1, 1, 1, False, 4)) <= 1e-5
+
+
+def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
+    """A launcher checks the plan it is handed: shared memory that is not
+    its own formula's, a tile it cannot split, a variant it was not
+    compiled for. 1 is the stand-in's cudaErrorInvalidValue."""
+    k3 = host_libraries["filtered_lrelu.cu"].filtered_lrelu_tiled_launch
+    i, f, p, ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong
+    k3.argtypes = [p] * 4 + [i, ll, i] + [i] * 6 + [i] * 12 + [p] * 3 + [f, f, f, p]
+    sp = fl._geometry((38, 38), 12, 12, 2, 2, (9, 8, 9, 8), False)
+    plan = fl._plan(sp)
+    x = torch.zeros([1, 1, 38, 38])
+    y = torch.zeros([1, 1, *sp["out_hw"]])
+    taps = (ctypes.c_float * 28)()
+
+    def launch(up_=2, down=2, backward=0, toh=plan["toh"], tow=plan["tow"], smem=plan["smem"]):
+        return k3(x.data_ptr(), None, y.data_ptr(), None, 0, 1, 1, 38, 38, *sp["mid_hw"],
+                  *sp["out_hw"], up_, down, backward, 0, 0, 0, 0, toh, tow, plan["mh"],
+                  plan["mw"], smem, ctypes.addressof(taps), ctypes.addressof(taps),
+                  ctypes.addressof(taps), 0.2, 1.0, -1.0, None)
+
+    assert launch() == 0
+    assert launch(smem=plan["smem"] + 16) == 1
+    assert launch(toh=plan["toh"] + 1) == 1
+    assert launch(tow=plan["tow"] + 4) == 1  # the mid tile no longer covers it
+    assert launch(up_=4, down=4) == 1
+    assert launch(up_=2, down=4, backward=0) == 1  # compiled for the backward only
+
+    k2 = host_libraries["upfirdn2d.cu"].upfirdn2d_sep4_launch
+    k2.argtypes = [p, p, i, ll] + [i] * 11 + [p] * 3
+    plan2 = up._plan((4,), (1, 1), (1, 1), (38, 38))
+    x2 = torch.zeros([1, 1, 39, 39])
+
+    def launch2(up_=1, down=1, smem=plan2["smem"], tow=plan2["tow"]):
+        return k2(x2.data_ptr(), y.data_ptr(), 0, 1, 39, 39, 36, 36, up_, down, 1, 1,
+                  plan2["toh"], tow, smem, ctypes.addressof(taps), ctypes.addressof(taps), None)
+
+    assert launch2() == 0
+    assert launch2(smem=plan2["smem"] - 4) == 1
+    assert launch2(tow=plan2["tow"] + 2) == 1
+    assert launch2(up_=2, down=2) == 1

@@ -18,9 +18,10 @@ against the plain backward at the plain version's own sign/clamp record
 (`_record_ref`): lrelu's derivative jumps at 0, and where an up-rate value
 lies within rounding of 0 the two sides may take different branches (in
 bf16 about one pixel in a thousand), which moves single gradients by a
-good part of their range. K3's own record may differ from the plain one
-only on such a sliver of pixels, and the public path must equal the
-backward kernel at K3's own record.
+good part of their range. K3's own record (2 bits per up-rate pixel, four
+pixels per byte; compared unpacked) may differ from the plain one only on
+such a sliver of pixels, and the public path must equal the backward
+kernel at K3's own record.
 """
 
 import pytest
@@ -136,6 +137,42 @@ def test_upfirdn2d_kernel_matches_plain(cuda, case, dtype, separable):
     assert _rel_err(dx_k, dx_r) <= TOL_GRAD[dtype]
 
 
+# The separable variants at the walk's map sizes with an odd row length
+# (rows start at 2-byte offsets): (x shape, arguments, forward variant,
+# backward variant).
+UPFIRDN_VARIANT_CASES = {
+    "u1d1": ([2, 3, 257, 257], dict(padding=1, gain=4), "u1d1", "u1d1"),
+    "u1d2": ([2, 3, 257, 257], dict(down=2, padding=1), "u1d2", "u2d1"),
+    "u2d1": ([2, 3, 129, 129], dict(up=2, padding=(2, 1, 2, 1), gain=4), "u2d1", "u1d2"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(UPFIRDN_VARIANT_CASES))
+def test_upfirdn2d_variants_at_walk_shapes(cuda, name, dtype):
+    shape, kw, fwd_variant, bwd_variant = UPFIRDN_VARIANT_CASES[name]
+    f = up.setup_filter([1, 3, 3, 1], device=cuda, separable=True)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return up.upfirdn2d(x, f, impl=impl, **kw)
+
+    y_r = fn(x, "ref")
+    assert y_r.shape[-1] % 2 == 1 or shape[-1] % 2 == 1
+    dy = torch.randn(y_r.shape, generator=g, device=cuda).to(dtype)
+    n = dict(up.variant_launches)
+    y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
+    want = dict(n)
+    want[fwd_variant] += 1
+    want[bwd_variant] += 1
+    assert up.variant_launches == want
+    y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
+    assert y_k.shape == y_r.shape and dx_k.shape == x.shape
+    assert _rel_err(y_k, y_r) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL_GRAD[dtype]
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     f = up.setup_filter([1, 3, 3, 1], device=cuda, separable=True)
     with pytest.raises(TypeError):
@@ -159,6 +196,17 @@ FLRELU_CASES = {
                                    None, 0.2),
     "toRGB": ([2, 2, 256, 256], 1, 1, 1, 1, (0, 0, 0, 0), 1.0, 1.0),
     "asymmetric pad, down 1": ([3, 5, 17, 13], 12, 6, 2, 1, (5, 6, 4, 7), 1.0, 0.1),
+    # out_w = 48, one whole tile: the last tile owns the record through to mid_w.
+    "out_w a multiple of the tile": ([2, 3, 38, 50], 12, 12, 2, 2, (9, 8, 9, 8), None, 0.2),
+}
+# The variant each case's forward and backward must take.
+FLRELU_VARIANTS = {
+    "L0 up2 pad(9,8)": ("u2t12_d2t12", "u2t12_d2t12"),
+    "L10 up4 crop(-6,-9)": ("u4t24_d2t12", "u2t12_d4t24"),
+    "L13 critical crop(-11,-12)": ("u2t12_d2t12", "u2t12_d2t12"),
+    "toRGB": ("u1t1_d1t1", "u1t1_d1t1"),
+    "asymmetric pad, down 1": ("generic", "generic"),
+    "out_w a multiple of the tile": ("u2t12_d2t12", "u2t12_d2t12"),
 }
 TOL_FL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RECORD_SLIVER = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -186,10 +234,13 @@ def _check_flrelu(cuda, name, dtype, flip, clamp=None, seed=0):
     y_r = fn(x, "ref")
     g = torch.Generator(device=cuda).manual_seed(seed + 1)
     dy = torch.randn(y_r.shape, generator=g, device=cuda).to(dtype)
-    n = dict(fl.launches)
+    n, nv = dict(fl.launches), dict(fl.variant_launches)
     y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
     assert fl.launches["filtered_lrelu_fwd"] == n["filtered_lrelu_fwd"] + 1
     assert fl.launches["filtered_lrelu_bwd"] == n["filtered_lrelu_bwd"] + 1
+    for variant in FLRELU_VARIANTS[name]:
+        nv[variant] += 1
+    assert fl.variant_launches == nv
     y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
     assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
     assert _rel_err(y_k, y_r) <= TOL_FL[dtype]
@@ -204,8 +255,12 @@ def _check_flrelu(cuda, name, dtype, flip, clamp=None, seed=0):
     # and the public path is the backward kernel at that record.
     _, rec_k = fl._forward_kernel(x, fu, fd, b, up_, down, pad, gain, slope, clamp, flip,
                                   need_record=True)
-    assert rec_k.shape == rec_r.shape
-    assert (rec_k != rec_r).float().mean().item() <= RECORD_SLIVER[dtype]
+    assert rec_k.shape == rec_r.shape and rec_k.dtype == torch.uint8
+    mid_w = fl._geometry(tuple(x.shape[2:]), 1 if fu is None else fu.shape[0],
+                         1 if fd is None else fd.shape[0], up_, down, pad, False)["mid_hw"][1]
+    assert rec_k.shape[-1] == -(-mid_w // 4)
+    bits_k, bits_r = fl.unpack_record(rec_k, mid_w), fl.unpack_record(rec_r, mid_w)
+    assert (bits_k != bits_r).float().mean().item() <= RECORD_SLIVER[dtype]
     dx_own = fl._backward_kernel(dy, rec_k, tuple(x.shape[2:]), fu, fd, up_, down, pad, gain,
                                  slope, flip)
     assert torch.equal(dx_k, dx_own)
@@ -219,6 +274,27 @@ def test_filtered_lrelu_kernel_matches_plain(cuda, name, dtype, flip):
     _check_flrelu(cuda, name, dtype, flip)
 
 
+def test_filtered_lrelu_last_tile_owns_the_record_to_the_edge(cuda):
+    """With out_w a whole number of tiles the tiles' cores stop short of
+    mid_w by taps - down columns; the last tile writes those too."""
+    name = "out_w a multiple of the tile"
+    shape, tu, td, up_, down, padding, _, _ = FLRELU_CASES[name]
+    sp = fl._geometry(tuple(shape[2:]), tu, td, up_, down, padding, False)
+    plan = fl._plan(sp)
+    assert sp["out_hw"][1] % plan["tow"] == 0
+    assert sp["mid_hw"][1] > sp["out_hw"][1] * down
+    x, fu, fd, b, kw = _flrelu_inputs(cuda, name, torch.float32, 5)
+    gain = 2 ** 0.5
+    _, rec_k = fl._forward_kernel(x, fu, fd, b, up_, down, padding, gain, 0.2, 0.5, False,
+                                  need_record=True)
+    rec_r = fl._record_ref(x, fu, b, up_, padding, gain, 0.2, 0.5, False)
+    mid_w = sp["mid_hw"][1]
+    differ = fl.unpack_record(rec_k, mid_w) != fl.unpack_record(rec_r, mid_w)
+    assert differ.float().mean().item() <= RECORD_SLIVER[torch.float32]
+    # The strip past the cores alone: unwritten bytes would differ on most pixels.
+    assert differ[..., sp["out_hw"][1] * down:].float().mean().item() <= 1e-3
+
+
 @pytest.mark.parametrize("name", ["L0 up2 pad(9,8)", "L10 up4 crop(-6,-9)", "toRGB"])
 def test_filtered_lrelu_kernel_clamp_and_bias_grad(cuda, name):
     """float32 with the clamp engaged (the up-rate values are O(1), the
@@ -226,7 +302,7 @@ def test_filtered_lrelu_kernel_clamp_and_bias_grad(cuda, name):
     x, fu, fd, b, kw = _check_flrelu(cuda, name, torch.float32, flip=False, clamp=0.5, seed=3)
     rec = fl._record_ref(x, fu, b, kw["up"], kw["padding"], kw["gain"] or 2 ** 0.5,
                          kw["slope"], 0.5, False)
-    assert (rec & 2).float().mean().item() > 0.05  # the clamp engages
+    assert (fl.unpack_record(rec, 4 * rec.shape[-1]) & 2).float().mean().item() > 0.05  # the clamp engages
     outs = []
     for impl in ("auto", "ref"):
         bg = b.detach().requires_grad_(True)
