@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout; it needs one CUDA device, nvcc (for the
-upfirdn2d and filtered_lrelu kernels) and Triton (for bias_act), and
-imports no JAX. Any failure raises and exits non-zero, printing no result
+upfirdn2d and filtered_lrelu kernels), Triton (for bias_act) and the CPU
+(phases 2, 7 and 8 hold the card against it), and imports no JAX. Any failure raises and exits non-zero, printing no result
 line.
 
   1. Kernels: builds the three hand-written kernels from the checkout's
@@ -34,8 +34,29 @@ line.
      3 batches with the kernels, then with --impl ref; where the plain
      versions do not fit the card at batch 16 it says so and compares at
      the largest batch that fits.
+  5. The projector at full width: `scripts/torch_project_dataset.py`'s
+     `main` over a synthetic zip at the operating-point StyleGAN2, batch
+     16, 20 steps (one batch to warm up, held at step 0 against --impl
+     ref; then 32 slices with the launch counts read), and the policy
+     reads the inversion zip it wrote with --init_w inv. Then 5 steps at
+     batch 8 over phase 4's SG3-T checkpoint, which reaches
+     filtered_lrelu from this path, held at step 0 against --impl ref.
+  6. The `tr` walk: 2 policy batches at batch 32 with --lpips_script
+     lpips_tr on phase 3's workspace, then with --impl ref.
+  7. GeometricAugment: the deterministic cores on the card against the
+     same call on the CPU at batch 32, 256x256 (1e-5, float32, on smooth
+     images; affine_warp on white noise within the bound its float32
+     sampling positions' difference gives, and to 1e-5 with theta made in
+     float64), then the policy with all three transforms through the
+     registry, timed.
+  8. Metrics: InceptionV3 and the VGG16 detector on one batch of 32, card
+     against CPU (1e-4), the metrics' generator call (batch 16, random
+     noise) with the kernels against the plain versions, then FID and
+     precision/recall of the live StyleGAN2 generator (512 generated
+     images) against phase 3's 96 slices, with the launch counts read.
 
-The last two lines of stdout are the kernels' JSON record and
+No launch of phases 5, 6 and 8 may go through a kernel's `generic`
+variant. The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -66,6 +87,9 @@ SQRT_HALF = math.sqrt(0.5)
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 BATCH, RES, N_BATCHES = 32, 256, 3
 SG3_BATCH = 16
+PROJ_BATCH, PROJ_STEPS = 16, 20          # the projector on StyleGAN2
+PROJ_SG3_BATCH, PROJ_SG3_STEPS = 8, 5    # and on the SG3-T checkpoint
+N_GEN = 512                              # generated images of the metrics
 # Launch counts by kernel variant, by kernel name; main() fills it.
 VARIANT_COUNTERS = {}
 
@@ -359,9 +383,29 @@ def phase_small_reference(torch, benchmark, arch="stylegan2"):
     return {"trace_max_abs_diff": err, "w_max_abs_diff": (ws_g - ws_c).abs().max().item()}
 
 
-def run_policy(torch, argv, counters):
+def reset_counters(counters):
+    for c in (*counters, *VARIANT_COUNTERS.values()):
+        c.update(dict.fromkeys(c, 0))
+
+
+def read_counters(counters, label, need):
+    """(launches by kernel, by variant) since reset_counters. Every kernel
+    named in `need` must have been launched, none through `generic`."""
+    launches = {k: v for c in counters for k, v in c.items()}
+    variants = {name: dict(c) for name, c in VARIANT_COUNTERS.items()}
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {label} path")
+    for name, c in variants.items():
+        if c["generic"] != 0:
+            raise AssertionError(f"{label}: {c['generic']} launches of {name} went through its "
+                                 f"generic variant: {c}")
+    return launches, variants
+
+
+def run_policy(torch, argv, counters, n_batches=N_BATCHES):
     """AugOptions -> create_dataset -> create_augment -> per-batch
-    set_input / forward / get_output over the first N_BATCHES batches;
+    set_input / forward / get_output over the first n_batches batches;
     returns per-batch records, the launch counts, set-up seconds and the
     peak device memory. `counters` are the kernels' launch dicts; the
     per-variant dicts (VARIANT_COUNTERS) are set to 0 with them."""
@@ -371,8 +415,7 @@ def run_policy(torch, argv, counters):
 
     opt = AugOptions().parse(argv=argv, install_logger=False)
     dataset = create_dataset(opt)
-    for c in (*counters, *VARIANT_COUNTERS.values()):
-        c.update(dict.fromkeys(c, 0))
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     augment = create_augment(opt)
@@ -390,7 +433,7 @@ def run_policy(torch, argv, counters):
         batches.append(dict(out=out, wall=wall, traces=traces,
                             w_in=augment.get_latent_input()["w"],
                             w_out=augment.get_latent_output()["w"]))
-        if len(batches) == N_BATCHES:
+        if len(batches) == n_batches:
             break
     launches = {k: v for c in counters for k, v in c.items()}
     return batches, launches, setup_s, torch.cuda.max_memory_allocated()
@@ -407,9 +450,9 @@ def run_policy_fits(torch, argv, counters):
     return None
 
 
-def check_batches(torch, np, batches, batch, label):
-    if len(batches) != N_BATCHES:
-        raise AssertionError(f"{label}: expected {N_BATCHES} batches, got {len(batches)}")
+def check_batches(torch, np, batches, batch, label, n_batches=N_BATCHES):
+    if len(batches) != n_batches:
+        raise AssertionError(f"{label}: expected {n_batches} batches, got {len(batches)}")
     for i, b in enumerate(batches):
         for k in ("A", "B"):
             a = b["out"][k]
@@ -456,14 +499,7 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
 
     batches, launches, setup_s, peak = run_policy(torch, argv, counters)
     check_batches(torch, np, batches, batch, arch)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the {arch} path")
-    variants = {name: dict(c) for name, c in VARIANT_COUNTERS.items()}
-    for name, c in variants.items():
-        if c["generic"] != 0:
-            raise AssertionError(f"{arch}: {c['generic']} launches of {name} went through its "
-                                 f"generic variant: {c}")
+    launches, variants = read_counters(counters, arch, list(launches))
     kernel_sps = samples_per_s(batches, batch)
     log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
         f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
@@ -472,6 +508,7 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
                kernel_samples_per_s=kernel_sps,
                batch_wall_s=[b["wall"] for b in batches], setup_s=setup_s,
                peak_mem_bytes=peak,
+               argv=argv,
                loss_traces=[{k: v.tolist() for k, v in b["traces"].items()} for b in batches])
     gc.collect()
     torch.cuda.empty_cache()
@@ -506,6 +543,413 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
     rec.update(step0_losses=step0_agree(np, batches, ref, arch), plain_batch=plain_batch,
                plain_fits_batch=plain_batch == batch, plain_samples_per_s=ref_sps,
                plain_batch_wall_s=[b["wall"] for b in ref], plain_peak_mem_bytes=ref_peak)
+    return rec
+
+
+def rel_close(got, want, tol, label):
+    """max |got - want| <= tol * max |want|; returns the relative error."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not math.isfinite(err) or err > tol * max(scale, 1e-30):
+        raise AssertionError(f"{label}: max |got - want| = {err} > {tol} x max |want| = {scale}")
+    return err / max(scale, 1e-30)
+
+
+def load_generator(ckpt, dev):
+    """The checkpoint's generator on the card, frozen, bf16 in its top 4
+    blocks as the policy runs it."""
+    from latentaugment_tpu_torch.models import networks_for
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint
+
+    g_params, g_cfg, _, _ = checkpoint.load_stylegan(ckpt)
+    g_cfg.num_fp16_res = 4
+    G = networks_for(g_cfg).Generator(g_cfg)
+    G.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    return G.to(dev).eval().requires_grad_(False)
+
+
+def projector_step_split(torch, ckpt, batch, dev):
+    """The two halves of one projector step alone, forward + backward
+    (median of 10, CUDA events): G synthesis with respect to w at `batch`,
+    and the LPIPS VGG16 with respect to its 2 * batch full-size inputs."""
+    from latentaugment_tpu_torch.models import vgg
+
+    G = load_generator(ckpt, dev)
+    g_cfg = G.cfg
+    vgg_params = vgg.get_vgg16(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = torch.randn([batch, 1, g_cfg.w_dim], generator=gen, device=dev) * 0.5
+    x = torch.rand([batch * g_cfg.img_channels, 3, RES, RES], generator=gen, device=dev) * 255
+
+    def fwd_bwd(f, inp):
+        inp = inp.detach().requires_grad_(True)
+        y = f(inp)
+        torch.autograd.grad(y, inp, torch.ones_like(y))
+
+    split = {
+        "G_fwd_bwd": median_ms(lambda: fwd_bwd(
+            lambda w: G.synthesis(w.repeat(1, g_cfg.num_ws, 1), noise_mode="const"), w), n=10),
+        "VGG_fwd_bwd": median_ms(lambda: fwd_bwd(
+            lambda x: vgg.lpips_features(vgg_params, x), x), n=10)}
+    log(f"  one step's halves alone, fwd+bwd: G at batch {batch} {split['G_fwd_bwd']:.1f} ms, "
+        f"VGG16 on {x.shape[0]} images of {RES}x{RES} {split['VGG_fwd_bwd']:.1f} ms")
+    del G, vgg_params, w, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return split
+
+
+def phase_projector(torch, np, benchmark, counters, sg2_need, sg3_need, sg3_rec, dev):
+    """The port's inversion command line at full width, then its zip read
+    back by the policy; then a short projection over the SG3-T checkpoint."""
+    import pickle
+    import zipfile
+
+    from scripts.torch_project_dataset import main as project_main
+
+    batch, steps = PROJ_BATCH, PROJ_STEPS
+    log(f"phase 5: the projector, stylegan2, batch {batch}, {steps} steps")
+    root = os.path.join(REPO, "build", "chip_smoke_projector")
+    shutil.rmtree(root, ignore_errors=True)
+    # Two batches' worth of slices.
+    argv = benchmark.build_policy_workspace(root, batch_size=batch, n_patients=2,
+                                            slices_per_patient=batch)
+    opt = dict(zip(argv[::2], argv[1::2]))
+    w_name = "PolicyBench-projected-256"
+    dest_zip = os.path.join(os.path.dirname(opt["--dataroot"]), w_name + ".zip")
+    base = ["--checkpoint", opt["--model_dir"], "--data_zip", opt["--dataroot"],
+            "--resolution", str(RES), "--num_steps", str(steps), "--batch_size", str(batch)]
+
+    # One batch to warm up, with the kernels and with the plain versions:
+    # step 0 depends on the forward pass only (same seed, so the same z,
+    # noise and targets).
+    first = {}
+    for impl in ("auto", "ref"):
+        reset_counters(counters)
+        first[impl] = project_main(base + ["--max_items", str(batch), "--impl", impl, "--outdir",
+                                           os.path.join(root, f"warm_{impl}")])[0]
+        torch.cuda.synchronize()
+    if any(c for cs in counters for c in cs.values()):
+        raise AssertionError(f"--impl ref launched kernels: {[dict(c) for c in counters]}")
+    d_k, d_p = first["auto"]["dists"][0], first["ref"]["dists"][0]
+    if not (math.isfinite(d_k) and abs(d_k - d_p) <= 1e-2 * abs(d_p)):
+        raise AssertionError(f"projector step-0 dist: kernels {d_k}, plain {d_p}")
+    log(f"  step-0 dist, kernels {d_k:.6f} vs plain {d_p:.6f} (rel diff "
+        f"{abs(d_k - d_p) / abs(d_p):.2e}); warm batch: kernels {first['auto']['seconds']:.2f} s, plain {first['ref']['seconds']:.2f} s")
+
+    reset_counters(counters)
+    torch.cuda.reset_peak_memory_stats()
+    records = project_main(base + ["--outdir", os.path.join(root, "temp-projector"),
+                                   "--dest_zip", dest_zip])
+    torch.cuda.synchronize()
+    launches, variants = read_counters(counters, "projector", sg2_need)
+    peak = torch.cuda.max_memory_allocated()
+    if [r["n"] for r in records] != [batch, batch]:
+        raise AssertionError(f"projector batches: {[r['n'] for r in records]}")
+    for r in records:
+        d = r["dists"]
+        if len(d) != steps or not all(math.isfinite(v) for v in d) or not d[-1] < d[1]:
+            raise AssertionError(f"projector dists did not descend: {d}")
+    step_ms = [r["seconds"] / steps * 1e3 for r in records]
+    slices_per_s = batch / records[1]["seconds"]
+    log(f"  kernels: {step_ms[1]:.1f} ms/step, {slices_per_s:.3f} slices/s at {steps} steps "
+        f"(second batch; first {step_ms[0]:.1f} ms/step), peak memory {peak / 2**30:.2f} GiB, "
+        f"dist {records[1]['dists'][0]:.4f} -> {records[1]['dists'][-1]:.4f}, "
+        f"launches over 2 batches {launches}, by variant {variants}")
+
+    # The inversion zip is member-exact with the image zip, and the policy reads it.
+    with zipfile.ZipFile(opt["--dataroot"]) as zi, zipfile.ZipFile(dest_zip) as zw:
+        if sorted(zi.namelist()) != sorted(zw.namelist()):
+            raise AssertionError("inversion zip and image zip differ in their members")
+    pol_argv = list(argv)
+    pol_argv[pol_argv.index("--dataset_w_name") + 1] = w_name
+    batches, _, _, _ = run_policy(torch, pol_argv, counters, n_batches=1)
+    check_batches(torch, np, batches, batch, "policy over the projected codes", n_batches=1)
+    with zipfile.ZipFile(dest_zip) as zw:
+        want = np.stack([pickle.loads(zw.read(n))[0] for n in batches[0]["out"]["A_paths"]])
+    np.testing.assert_array_equal(batches[0]["w_in"], want)
+    log("  inversion zip: member-exact with the image zip; the policy walked from its codes")
+    rec = dict(batch=batch, steps=steps, launches=launches, variant_launches=variants,
+               ms_per_step=step_ms[1], slices_per_s=slices_per_s, peak_mem_bytes=peak,
+               batch_seconds=[r["seconds"] for r in records], dists=[r["dists"] for r in records],
+               step0_dist={"kernels": d_k, "plain": d_p},
+               warm_batch_seconds={k: v["seconds"] for k, v in first.items()})
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["step_split_ms"] = projector_step_split(torch, opt["--model_dir"], batch, dev)
+
+    sg3_batch, sg3_steps = PROJ_SG3_BATCH, PROJ_SG3_STEPS
+    log(f"  stylegan3 (phase 4's checkpoint), batch {sg3_batch}, {sg3_steps} steps")
+    sg3_opt = dict(zip(sg3_rec["argv"][::2], sg3_rec["argv"][1::2]))
+    sg3_argv = ["--checkpoint", sg3_opt["--model_dir"], "--data_zip", sg3_opt["--dataroot"],
+                "--resolution", str(RES), "--num_steps", str(sg3_steps),
+                "--batch_size", str(sg3_batch), "--max_items", str(sg3_batch)]
+    reset_counters(counters)
+    sg3 = project_main(sg3_argv + ["--outdir", os.path.join(root, "temp-projector-sg3")])[0]
+    torch.cuda.synchronize()
+    sg3_launches, sg3_variants = read_counters(counters, "stylegan3 projector", sg3_need)
+    # Too few steps to ask for a descent under the exploration noise: the
+    # distances are finite and w moved.
+    if not all(math.isfinite(v) for v in sg3["dists"]) or len(set(sg3["dists"][1:])) < 2:
+        raise AssertionError(f"stylegan3 projector dists: {sg3['dists']}")
+    log(f"  {sg3['seconds'] / sg3_steps * 1e3:.1f} ms/step (first batch, warm-up included), dist "
+        f"{sg3['dists'][0]:.4f} -> {sg3['dists'][-1]:.4f}, launches {sg3_launches}, "
+        f"by variant {sg3_variants}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same batch with the plain versions: step 0 agrees as above.
+    reset_counters(counters)
+    sg3_ref = project_main(sg3_argv + ["--impl", "ref", "--outdir",
+                                       os.path.join(root, "temp-projector-sg3-ref")])[0]
+    torch.cuda.synchronize()
+    if any(c for cs in counters for c in cs.values()):
+        raise AssertionError(f"--impl ref launched kernels: {[dict(c) for c in counters]}")
+    s_k, s_p = sg3["dists"][0], sg3_ref["dists"][0]
+    if not (math.isfinite(s_p) and abs(s_k - s_p) <= 1e-2 * abs(s_p)):
+        raise AssertionError(f"stylegan3 projector step-0 dist: kernels {s_k}, plain {s_p}")
+    log(f"  step-0 dist, kernels {s_k:.6f} vs plain {s_p:.6f} (rel diff "
+        f"{abs(s_k - s_p) / abs(s_p):.2e}); plain {sg3_ref['seconds'] / sg3_steps * 1e3:.1f} "
+        "ms/step")
+    rec["stylegan3"] = dict(batch=sg3_batch, steps=sg3_steps, launches=sg3_launches,
+                            variant_launches=sg3_variants, seconds=sg3["seconds"],
+                            dists=sg3["dists"], plain_seconds=sg3_ref["seconds"],
+                            step0_dist={"kernels": s_k, "plain": s_p})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tr_walk(torch, np, counters, need, slice_rec):
+    """The policy with the local LPIPS criterion's embedding, on phase 3's
+    workspace: kernels, then plain versions."""
+    n = 2
+    log(f"phase 6: the policy with --lpips_script lpips_tr, batch {BATCH}, {n} batches")
+    argv = slice_rec["argv"] + ["--lpips_script", "lpips_tr"]
+    batches, launches, setup_s, peak = run_policy(torch, argv, counters, n_batches=n)
+    check_batches(torch, np, batches, BATCH, "tr walk", n_batches=n)
+    launches, variants = read_counters(counters, "tr walk", need)
+    sps = BATCH / batches[1]["wall"]
+    log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, {sps:.3f} samples/s "
+        f"(second batch; the script walk: {slice_rec['kernel_samples_per_s']:.3f} over batches "
+        f"2-3), set-up {setup_s:.1f} s, peak memory {peak / 2**30:.2f} GiB, launches {launches}, "
+        f"by variant {variants}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_launches, _, _ = run_policy(torch, argv + ["--impl", "ref"], counters, n_batches=n)
+    check_batches(torch, np, ref, BATCH, "tr walk plain", n_batches=n)
+    if any(ref_launches.values()):
+        raise AssertionError(f"--impl ref launched kernels: {ref_launches}")
+    ref_sps = BATCH / ref[1]["wall"]
+    log(f"  plain (--impl ref): {ref_sps:.3f} samples/s (second batch)")
+    rec = dict(batch=BATCH, launches=launches, variant_launches=variants,
+               kernel_samples_per_s=sps, plain_samples_per_s=ref_sps, setup_s=setup_s,
+               peak_mem_bytes=peak, batch_wall_s=[b["wall"] for b in batches],
+               step0_losses=step0_agree(np, batches, ref, "tr walk"))
+    del batches, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def affine_position_errors(torch, geo, x_noise, angles, shifts, dev, core_rec):
+    """Why affine_warp agrees between card and CPU to 1e-5 on smooth images
+    only: its float32 sampling positions differ, and an image's error is
+    at most that difference times the image's slope. Measured here: theta
+    and the positions (in pixels) card against CPU, the bound they give on
+    white noise beside the error seen, and the same with theta made in
+    float64 (then rounded), which tells the 3x3 inverses' share from the
+    position arithmetic's: that one must agree to 1e-5 on white noise."""
+    cpu = torch.device("cpu")
+
+    def sample(img, pos):
+        return torch.nn.functional.grid_sample(img, pos, mode="bilinear",
+                                               padding_mode="reflection", align_corners=False)
+
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("theta_in_float64", torch.float64)):
+        th_c = geo.affine_theta(angles, shifts, RES, RES, cpu, dtype).float()
+        th_d = geo.affine_theta(angles.to(dev), shifts.to(dev), RES, RES, dev, dtype).float()
+        pos_c, pos_d = geo.affine_positions(th_c, RES, RES), geo.affine_positions(th_d, RES, RES)
+        out[name] = {
+            "theta_max_abs_err": (th_d.cpu() - th_c).abs().max().item(),
+            "position_max_err_px": (pos_d.cpu() - pos_c).abs().max().item() * RES / 2,
+            "white_noise_max_abs_err": (sample(x_noise.to(dev), pos_d).cpu()
+                                        - sample(x_noise, pos_c)).abs().max().item()}
+    slope = ((x_noise[..., :, 1:] - x_noise[..., :, :-1]).abs().max()
+             + (x_noise[..., 1:, :] - x_noise[..., :-1, :]).abs().max()).item()
+    f32 = out["float32"]
+    # grid_sample maps a position to a pixel index in float32 again: two
+    # units in the last place of an index below RES on top of what was measured.
+    bound = (f32["position_max_err_px"] + 2 * RES * 2.0 ** -24) * slope + 1e-6
+    out.update(white_noise_slope_per_px=slope, white_noise_err_bound=bound)
+    if not f32["white_noise_max_abs_err"] <= bound:
+        raise AssertionError(f"affine_warp on white noise: card vs CPU {f32} exceeds the bound "
+                             f"{bound} that its positions' difference gives")
+    f64 = out["theta_in_float64"]
+    if not f64["white_noise_max_abs_err"] <= 1e-5:
+        raise AssertionError(f"affine_warp with a float64 theta on white noise: card vs CPU {f64}")
+    log(f"  affine_warp's positions, card vs CPU: theta {f32['theta_max_abs_err']:.2e}, positions "
+        f"{f32['position_max_err_px']:.2e} px; white noise (slope {slope:.2f}/px) err "
+        f"{f32['white_noise_max_abs_err']:.2e} <= bound {bound:.2e}; with theta made in float64: "
+        f"theta {f64['theta_max_abs_err']:.2e}, positions {f64['position_max_err_px']:.2e} px, "
+        f"white noise err {f64['white_noise_max_abs_err']:.2e} "
+        f"(smooth images: {core_rec['rel_err']:.2e})")
+    return out
+
+
+def phase_geometric(torch, np, dev):
+    """GeometricAugment's cores, card against CPU, and the policy timed."""
+    from latentaugment_tpu_torch.augments import create_augment
+    from latentaugment_tpu_torch.augments import geometric_aug as geo
+    from latentaugment_tpu_torch.options import AugOptions
+
+    log(f"phase 7: GeometricAugment, batch {BATCH}, {RES}x{RES}")
+    g = torch.Generator().manual_seed(11)
+    # A warp's error is its sampling position's error times the image's
+    # slope. affine_warp's float32 positions are good to ~1e-4 of a pixel at
+    # this size (affine_position_errors measures it); the 1e-5 is asked of
+    # smooth images, as the slices are (one cycle of a sinusoid per image,
+    # slope 0.025 per pixel), and white noise (slope up to 2 per pixel) is
+    # held to 1e-3 and to the bound its positions give.
+    u = torch.linspace(0, 2 * math.pi, RES)
+    phase = torch.rand([BATCH, 2, 1, 1], generator=g) * 2 * math.pi
+    x = torch.sin(u[None, None, :, None] + phase) * torch.cos(u[None, None, None, :] - phase)
+    x_noise = torch.rand([BATCH, 2, RES, RES], generator=g) * 2 - 1
+    angles = torch.rand([BATCH], generator=g) * 6 - 3
+    angles[:2] = torch.tensor([30.0, -30.0])
+    shifts = (torch.rand([BATCH, 2], generator=g) * 2 - 1) * 0.05 * RES
+    noise = torch.rand([BATCH, 2, RES, RES], generator=g) * 2 - 1
+    cases = {"affine_warp": (geo.affine_warp, (angles, shifts), {}),
+             "elastic_warp": (geo.elastic_warp, (noise,), {})}
+    rec = {"cores": {}}
+    for name, (fn, args, kw) in cases.items():
+        want = fn(x, *args, **kw)
+        if not (want - x).abs().max().item() > 1e-3:
+            raise AssertionError(f"{name} left the image where it was")
+        xd, argsd = x.to(dev), tuple(a.to(dev) for a in args)
+        err = rel_close(fn(xd, *argsd, **kw), want, 1e-5, name)
+        err_noise = rel_close(fn(x_noise.to(dev), *argsd, **kw), fn(x_noise, *args, **kw), 1e-3,
+                              f"{name} on white noise")
+        ms = median_ms(lambda: fn(xd, *argsd, **kw))
+        rec["cores"][name] = {"rel_err": err, "rel_err_white_noise": err_noise, "ms": ms}
+        log(f"  {name:24s} card vs CPU rel err {err:.2e} (white noise {err_noise:.2e}), "
+            f"{ms:.3f} ms on the card")
+    rec["affine_positions"] = affine_position_errors(torch, geo, x_noise, angles, shifts, dev,
+                                                     rec["cores"]["affine_warp"])
+    flipped = geo.random_hflip(torch.Generator(device=dev).manual_seed(0), x.to(dev), 1.0)
+    if not torch.equal(flipped.cpu(), x.flip(-1)):  # bit-exact
+        raise AssertionError("random_hflip at p = 1 did not flip every sample")
+
+    argv = ["--dataroot", "unused.zip", "--checkpoints_dir",
+            os.path.join(REPO, "build", "chip_smoke_geometric"), "--load_size", str(RES),
+            "--batch_size", str(BATCH), "--aug", "geometric", "--horizontal_flip", "--affine",
+            "--elastic_deform", "--p_thres", "0.0"]
+    augment = create_augment(AugOptions().parse(argv=argv, install_logger=False))
+    paths = [f"train/p/train_p_{i:05d}.pickle" for i in range(BATCH)]
+    data = {"A": x_noise[:, :1].numpy(), "B": x_noise[:, 1:].numpy(), "A_paths": paths,
+            "B_paths": paths}
+    walls = []
+    for _ in range(6):
+        t0 = time.time()
+        augment.set_input(data)
+        augment.forward()  # ends in the copy to the host
+        out = augment.get_output()
+        walls.append(time.time() - t0)
+    for k in ("A", "B"):
+        a = out[k]
+        changed = (np.abs(a - data[k]).reshape(BATCH, -1).max(axis=1) > 1e-3).all()
+        if a.shape != (BATCH, 1, RES, RES) or not np.isfinite(a).all() or not changed:
+            raise AssertionError(f"geometric policy output {k}: shape {a.shape}, finite "
+                                 f"{np.isfinite(a).all()}, every sample transformed {changed}")
+    rec["policy_ms_per_batch"] = statistics.median(walls[1:]) * 1e3
+    rec["policy_first_batch_ms"] = walls[0] * 1e3
+    log(f"  policy (flip + affine + elastic, host to host): {rec['policy_ms_per_batch']:.2f} ms "
+        f"per batch of {BATCH} (median of 5; first {rec['policy_first_batch_ms']:.1f} ms)")
+    return rec
+
+
+def phase_metrics(torch, np, counters, need, slice_rec, dev):
+    """The two detectors, card against CPU, then FID and precision/recall
+    of the live generator."""
+    from latentaugment_tpu_torch.metrics import frechet_inception_distance as fid_mod
+    from latentaugment_tpu_torch.metrics import metric_utils, precision_recall
+    from latentaugment_tpu_torch.models.stylegan2.networks import set_impl
+
+    n_gen = N_GEN
+    log(f"phase 8: metrics, detectors on a batch of {BATCH}, then {n_gen} generated images")
+    x = torch.rand([BATCH, 3, RES, RES], generator=torch.Generator().manual_seed(12)) * 255
+    rec = {"detectors": {}}
+    for name, url in (("inception", fid_mod.DETECTOR_URL), ("vgg16", precision_recall.DETECTOR_URL)):
+        want = metric_utils.get_feature_detector(url, torch.device("cpu"))(x)
+        det = metric_utils.get_feature_detector(url, dev)
+        xd = x.to(dev)
+        err = rel_close(det(xd), want, 1e-4, f"{name} detector")
+        ms = median_ms(lambda: det(xd), n=10)
+        rec["detectors"][name] = {"rel_err": err, "ms_per_batch": ms,
+                                  "images_per_s": BATCH / ms * 1e3}
+        log(f"  {name:10s} card vs CPU rel err {err:.2e}, {ms:.2f} ms per batch of {BATCH} "
+            f"({BATCH / ms * 1e3:.0f} images/s)")
+        del want
+    metric_utils._feature_detector_cache.pop(("vgg16", "cpu"), None)  # 0.5 GB of host memory
+
+    opt = dict(zip(slice_rec["argv"][::2], slice_rec["argv"][1::2]))
+    G = load_generator(opt["--model_dir"], dev)
+    # The metrics' generator call (batch 16, random noise, one seeded
+    # generator for z and noise) with the kernels against the plain versions.
+    imgs = {}
+    for impl in ("auto", "ref"):
+        set_impl(G, impl)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        with torch.no_grad():
+            z = torch.randn([16, G.cfg.z_dim], generator=gen, device=dev)
+            imgs[impl] = G(z, truncation_psi=1.0, noise_mode="random", generator=gen)
+    set_impl(G, "auto")
+    # Four bf16 blocks deep, the plain versions rounding 3-4 times per layer
+    # where a kernel rounds once: the bound of bf16 gradients and K3's values.
+    rec["generator_rel_err"] = rel_close(imgs["auto"], imgs["ref"], TOL_GRAD["bfloat16"],
+                                         "metrics' generator, kernels vs plain")
+    log(f"  G(z) at batch 16, random noise: kernels vs plain rel err "
+        f"{rec['generator_rel_err']:.2e} (bf16 top blocks, allowed {TOL_GRAD['bfloat16']})")
+    del imgs
+
+    # Each pass's own progress reports time it: one when a pass begins, one
+    # when its last item is in (features reach the host batch by batch).
+    marks = []
+    progress = metric_utils.ProgressMonitor(
+        verbose=False, progress_fn=lambda cur, total: marks.append(time.time()))
+    opts = metric_utils.MetricOptions(
+        G=G, G_kwargs=dict(seed=0), cache=False, device=dev, progress=progress,
+        dataset_kwargs=dict(path=opt["--dataroot"], split="train",
+                            modalities=["MR_nonrigid_CT", "MR_MR_T2"], resolution=RES),
+        mode_dict=dict(mode_name="MR_nonrigid_CT", mode_idx=0))
+    reset_counters(counters)
+    t0 = time.time()
+    fid = fid_mod.compute_fid(opts, max_real=None, num_gen=n_gen)
+    fid_s = time.time() - t0
+    fid_gen_s = marks[-1] - marks[-2]
+    t0 = time.time()
+    precision, recall = precision_recall.compute_pr(
+        opts, max_real=200000, num_gen=n_gen, nhood_size=3, row_batch_size=10000,
+        col_batch_size=10000)
+    pr_s = time.time() - t0
+    pr_gen_s = marks[-1] - marks[-2]
+    launches, variants = read_counters(counters, "metrics", need)
+    if not (math.isfinite(fid) and fid > 0 and fid_gen_s > 0 and pr_gen_s > 0) \
+            or not (0.0 <= precision <= 1.0 and 0.0 <= recall <= 1.0):
+        raise AssertionError(f"metrics: fid {fid}, precision {precision}, recall {recall}, "
+                             f"generator passes {fid_gen_s} s and {pr_gen_s} s")
+    log(f"  fid50k_full at {n_gen} generated vs the real slices: {fid:.4f} in {fid_s:.1f} s (host "
+        f"matrix root included), its generator + InceptionV3 pass {n_gen / fid_gen_s:.1f} images/s "
+        f"(first pass, warm-up included); pr50k3_full: precision {precision:.4f}, recall "
+        f"{recall:.4f} in {pr_s:.1f} s, its generator + VGG16 pass {n_gen / pr_gen_s:.1f} images/s; "
+        f"launches {launches}, by variant {variants}")
+    rec.update(n_gen=n_gen, fid=fid, precision=precision, recall=recall,
+               generator_features_images_per_s=n_gen / fid_gen_s,
+               generator_vgg_features_images_per_s=n_gen / pr_gen_s, fid_seconds=fid_s,
+               pr_seconds=pr_s, launches=launches, variant_launches=variants)
     return rec
 
 
@@ -547,8 +991,21 @@ def main():
     small = {"stylegan2": phase_small_reference(torch, benchmark),
              "stylegan3": phase_small_reference(torch, benchmark, arch="stylegan3")}
     slice_rec = phase_slice(torch, np, benchmark, (ba.launches, up.launches))
-    sg3_rec = phase_slice(torch, np, benchmark, (ba.launches, up.launches, fl.launches),
-                          arch="stylegan3", batch=SG3_BATCH)
+    all_counters = (ba.launches, up.launches, fl.launches)
+    sg3_rec = phase_slice(torch, np, benchmark, all_counters, arch="stylegan3", batch=SG3_BATCH)
+    # What each new path must launch: bias_act and upfirdn2d forward and
+    # backward under a StyleGAN2 G (forward only for the metrics' G), and
+    # filtered_lrelu besides under the alias-free one.
+    sg2_need = [*ba.launches, *up.launches]
+    proj_rec = phase_projector(torch, np, benchmark, all_counters, sg2_need,
+                               [*ba.launches, *fl.launches], sg3_rec, dev)
+    tr_rec = phase_tr_walk(torch, np, all_counters, sg2_need, slice_rec)
+    geo_rec = phase_geometric(torch, np, dev)
+    metrics_rec = phase_metrics(torch, np, all_counters, ["bias_act_fwd", "upfirdn2d"],
+                                slice_rec, dev)
+    paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
+             "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
+             "metrics": metrics_rec}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -561,6 +1018,7 @@ def main():
         are the main-path case's (`main`), the error the worst of `recs`."""
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches, "variant": variant,
+                "launches_by_path": {p: r["launches"].get(name, 0) for p, r in paths.items()},
                 "max_abs_err": max(r[f"{d}_max_abs_err"] for r in recs
                                    for d in direction.split("+")),
                 "ms": main[f"{direction[:3]}_ms"], "plain_ms": main[f"plain_{direction[:3]}_ms"],
@@ -591,7 +1049,8 @@ def main():
         json.dump({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "bias_act": bias_recs, "upfirdn2d": up_recs, "filtered_lrelu": fl_recs,
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
-                   "kernels": kernels}, f, indent=1)
+                   "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
+                   "metrics": metrics_rec, "kernels": kernels}, f, indent=1)
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -15,8 +15,14 @@ Public API, as the JAX package's:
         augment.forward()
         out = augment.get_output()
 
-The two kernels of the walk are written by hand for Hopper: upfirdn2d
-in CUDA C++ (csrc/upfirdn2d.cu) and bias_act in Triton (ops/bias_act.py).
+`--aug latent` is the LatentAugment walk, `--aug geometric` the classical
+policy. Beside them: the projector that makes the walk's w codes
+(models/stylegan2/projector.py, scripts/torch_project_dataset.py), the
+perceptual criteria (augments/criteria) and the FID / precision-recall
+metrics (metrics/).
+
+Three kernels are written by hand for Hopper: upfirdn2d and StyleGAN3's
+filtered_lrelu in CUDA C++ (csrc/) and bias_act in Triton (ops/bias_act.py).
 """
 
 __version__ = "0.1.0"

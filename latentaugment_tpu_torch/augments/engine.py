@@ -9,12 +9,21 @@ synchronises with the device: step losses stay tensors and come back
 stacked. The final image is synthesized with random noise drawn from an
 explicit torch.Generator.
 
-Not ported here: the device mesh and tensor parallelism, conditional
-networks, the verbose per-term debug walk and the 'tr' LPIPS criterion.
+`--lpips_script` picks the LPIPS embedding: 'lpips_script' is the full
+five-tap VGG16 stack on [0,255] input, anything else ('lpips_tr') the
+local criterion's three taps on [-1,1] input (criteria/lpips.py). With
+`--verbose_log` the first batch runs the un-fused walk, which times each
+loss term on the host and, at batch 1, snapshots w and the image per step.
+
+Not ported here: the device mesh and tensor parallelism (a `mesh` that is
+not None raises) and conditional networks (c_dim > 0 raises in the models).
 """
 
+import json
 import os
+import pickle
 import random
+import time
 
 import numpy as np
 import torch
@@ -24,21 +33,25 @@ from ..models.stylegan2 import checkpoint, networks
 from ..ops.adam import adam_step as _adam_update
 from ..utils import util_general, util_path
 from ..utils.util_easydict import EasyDict
+from ..utils.util_general import resolve_device  # noqa: F401 (re-exported)
 from . import losses, manifold
+from .criteria.lpips import default_lin, embedding_from_params
 
 
 def make_bundle(G, D=None, vgg_params=None, W_summary=None, X_cc_summaries=None,
-                fea_summaries=None):
+                fea_summaries=None, lpips_lin=None):
     """All device state the walk functions read, in one dict."""
-    return {"G": G, "D": D, "vgg": vgg_params, "W_summary": W_summary,
-            "X_cc_summaries": X_cc_summaries, "fea_summaries": fea_summaries}
+    return {"G": G, "D": D, "vgg": vgg_params, "lpips_lin": lpips_lin,
+            "W_summary": W_summary, "X_cc_summaries": X_cc_summaries,
+            "fea_summaries": fea_summaries}
 
 
 def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                   w_disc, num_epochs=10, opt_lr=0.01, crop_size=64,
                   preprocess="center_random_crop", soft_aug=False, alpha=1.0,
-                  truncation_psi=1.0, remat=False, lpips_ref_input=False):
-    """Build the walk/ganrand/z_to_w functions. Each takes a
+                  truncation_psi=1.0, remat=False, lpips_variant="script",
+                  lpips_ref_input=False):
+    """Build the walk/ganrand/z_to_w/synthesize functions. Each takes a
     bundle (make_bundle) as its first argument."""
     res = g_cfg.img_resolution
     num_ws = g_cfg.num_ws
@@ -79,10 +92,13 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
         # the batch (batch-major).
         b = x_crop.shape[0]
         xm = x_crop.reshape(b * n_modes, 1, *x_crop.shape[2:]).repeat(1, 3, 1, 1)
-        # [0,255] input, the scale the manifold features are extracted at;
-        # lpips_ref_input feeds the raw [-1,1] image instead.
-        feats = vgg.lpips_features(bundle["vgg"], xm if lpips_ref_input
-                                   else (xm + 1.0) * 127.5)
+        if lpips_variant == "script":
+            # [0,255] input, the scale the manifold features are extracted at;
+            # lpips_ref_input feeds the raw [-1,1] image instead.
+            feats = vgg.lpips_features(bundle["vgg"], xm if lpips_ref_input
+                                       else (xm + 1.0) * 127.5)
+        else:  # the local LPIPS criterion's embedding
+            feats = embedding_from_params(bundle["vgg"], bundle["lpips_lin"], xm)
         feats = feats.reshape(b, n_modes, -1)
         acc = 0.0
         for m in modalities:
@@ -154,19 +170,13 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
     def z_to_w(bundle, z):
         return bundle["G"].mapping(z, truncation_psi=truncation_psi)[:, :1, :]
 
-    return EasyDict(walk=walk, ganrand=ganrand, z_to_w=z_to_w,
-                    loss_fn=loss_fn, adam_step=adam_step, finish=finish,
-                    num_epochs=num_epochs, remat=remat)
+    @torch.no_grad()
+    def synthesize(bundle, ws, generator):
+        return bundle["G"].synthesis(ws, noise_mode="random", generator=generator)
 
-
-def resolve_device(name):
-    """torch.device for `--device`; a CUDA device without CUDA raises
-    instead of running on the CPU."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available "
-                           "(pass --device cpu to run on the CPU)")
-    return device
+    return EasyDict(walk=walk, ganrand=ganrand, z_to_w=z_to_w, synthesize=synthesize,
+                    loss_fn=loss_fn, synth=synth, terms=terms, adam_step=adam_step,
+                    finish=finish, num_epochs=num_epochs, remat=remat)
 
 
 def resolve_stylegan_path(model_dir, dataset, dataset_name, modalities,
@@ -199,7 +209,11 @@ def resolve_vgg_path(model_dir):
 class LatentAugEngine:
     """Holds G/D/VGG + manifold summaries + the walk functions."""
 
-    def __init__(self, phase, opt, save_dir, device):
+    def __init__(self, phase, opt, save_dir, device, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (data / tensor parallelism) belongs to the DDP slice, "
+                "which is not ported yet")
         self.save_dir = save_dir
         self.model_dir = opt.model_dir
         self.interim_dir = opt.interim_dir
@@ -215,6 +229,7 @@ class LatentAugEngine:
         self.exp_stylegan = opt.exp_stylegan
         self.network_pkl_stylegan = opt.network_pkl_stylegan
         self.dataset_w_name = opt.dataset_w_name
+        self.exp_inv = opt.exp_inv
 
         self.num_epochs = opt.opt_num_epochs
         self.opt_lr = opt.opt_lr
@@ -228,6 +243,13 @@ class LatentAugEngine:
         self.soft_aug = opt.soft_aug
         self.alpha = opt.alpha
         self.lpips_ref_input = bool(opt.lpips_ref_input)
+        self.lpips_script = opt.lpips_script
+        self.lpips_variant = "script" if self.lpips_script == "lpips_script" else "tr"
+        self.verbose_log = opt.verbose_log
+        self._verbose_done = False
+        # Per-step losses and times of the last recorded walk (verbose_log).
+        self.stats_loss = EasyDict()
+        self.stats_time = EasyDict()
 
         # Host crop-position stream, seeded as in the JAX engine so both
         # draw the same crops.
@@ -244,10 +266,12 @@ class LatentAugEngine:
         self.w_dim = self.G_cfg.w_dim
         self.num_ws = self.G_cfg.num_ws
 
-        self.vgg_params = None
+        self.vgg_params = self.lpips_lin = None
         if self.w_lpips > 0.0:
             self.vgg_params = vgg.get_vgg16(path=resolve_vgg_path(self.model_dir),
                                             device=device)
+            if self.lpips_variant == "tr":
+                self.lpips_lin = default_lin(self.vgg_params, device=device)
 
         cache_dir = os.path.join(self.interim_dir, self.dataset, "cache_dir")
         self.stats_dataset_w = manifold.LatentCodeDataset(
@@ -285,7 +309,8 @@ class LatentAugEngine:
                 stats = self.compute_stats(
                     img_dataset, "features_jit", cache_dir,
                     cache_tag=(f"{self.dataset_name}-{self.phase}-{mode}"
-                               f"-{opt.crop_size_aug}-{self.preprocess}-script"),
+                               f"-{opt.crop_size_aug}-{self.preprocess}"
+                               f"-{self.lpips_variant}"),
                     step=opt.step_img, mode_id=mode_id)
                 self.fea_summaries.append(losses.manifold_summary(
                     torch.as_tensor(stats.get_all(), device=device)))
@@ -296,11 +321,12 @@ class LatentAugEngine:
             w_disc=self.w_disc, num_epochs=self.num_epochs, opt_lr=self.opt_lr,
             crop_size=self.crop_size, preprocess=self.preprocess,
             soft_aug=bool(self.soft_aug), alpha=float(self.alpha),
-            truncation_psi=self.truncation_psi, lpips_ref_input=self.lpips_ref_input,
-            remat=self._remat_setting(opt))
+            truncation_psi=self.truncation_psi, lpips_variant=self.lpips_variant,
+            lpips_ref_input=self.lpips_ref_input, remat=self._remat_setting(opt))
         self._bundle = make_bundle(
             self.G, self.D, self.vgg_params, W_summary=self.W_summary,
-            X_cc_summaries=self.X_cc_summaries, fea_summaries=self.fea_summaries)
+            X_cc_summaries=self.X_cc_summaries, fea_summaries=self.fea_summaries,
+            lpips_lin=self.lpips_lin)
 
     def _remat_setting(self, opt):
         """Per-block remat unless the options set it: on when G runs all in
@@ -348,20 +374,157 @@ class LatentAugEngine:
     def _to_device(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=self.device)
 
-    def forward(self, w):
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def forward(self, w, fname=None):
         """w [B, 1, w_dim] (or z [B, z_dim]) -> (img_aug, ws_aug [B, num_ws, w_dim]),
-        both tensors on the device."""
+        both tensors on the device. With verbose_log the first batch runs
+        the un-fused walk (`fname` names its snapshots); later ones run the
+        fused walk and record its loss traces and wall time."""
         w = self._to_device(w)
         if w.ndim == 2:
             w = self._fns.z_to_w(self._bundle, w)
         crop_pos = manifold.get_params(self.res, self.crop_size, self.preprocess,
                                        rng=self._crop_rng)["crop_pos"]
+        tick = time.time()
+        if self.verbose_log and not self._verbose_done:
+            self._verbose_done = True
+            img, ws_aug = self._walk_debug(w, crop_pos, fname)
+            self._sync()
+            self.stats_time["last_forward_s"] = time.time() - tick
+            return img, ws_aug
         img, ws_aug, self.last_traces = self._fns.walk(self._bundle, w, crop_pos,
                                                        self._synth_gen)
+        if self.verbose_log:
+            self._sync()
+            self._record_traces(self.last_traces, time.time() - tick)
         return img, ws_aug
 
     def forward_ganrand(self, z):
         return self._fns.ganrand(self._bundle, self._to_device(z), self._synth_gen)
+
+    def synthetize(self, ws, generator=None):
+        """ws [B, num_ws, w_dim] -> image with random noise, drawn from
+        `generator` (default: a device generator seeded with 0)."""
+        ws = self._to_device(ws)
+        if tuple(ws.shape[1:]) != (self.num_ws, self.w_dim):
+            raise ValueError(f"synthetize expects [B, {self.num_ws}, {self.w_dim}], "
+                             f"got {tuple(ws.shape)}")
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self._fns.synthesize(self._bundle, ws, generator)
+
+    def broadcasting(self, latent):
+        """[B, 1, w_dim] -> [B, num_ws, w_dim]."""
+        if latent.ndim != 3 or latent.shape[1] != 1:
+            raise ValueError(
+                f"broadcasting expects [B, 1, w_dim], got {tuple(latent.shape)}")
+        if isinstance(latent, torch.Tensor):
+            return latent.repeat(1, self.num_ws, 1)
+        return np.repeat(latent, self.num_ws, axis=1)
+
+    @staticmethod
+    def reverse_broadcasting(latent):
+        """[B, num_ws, w_dim] -> [B, 1, w_dim]."""
+        return latent[:, :1, :]
+
+    # ------------------------------------------------------------------
+    # Verbose walk: per-term timing and per-step snapshots
+
+    def _walk_debug(self, w0, crop_pos, fname=None):
+        """Un-fused K-step walk. Each loss term is evaluated on its own and
+        timed on the host (time_latent / time_disc / time_pix / time_lpips);
+        at batch 1, w and the image are snapshotted per step. The Adam
+        trajectory is the fused walk's (same adam_step)."""
+        fns, bundle = self._fns, self._bundle
+        carry = (w0, torch.zeros_like(w0), torch.zeros_like(w0))
+        steps = []
+        for epoch in range(self.num_epochs):
+            tick_epoch = time.time()
+            with torch.no_grad():
+                ws, x = fns.synth(bundle, carry[0])
+                self._sync()
+                loss_d, time_d = EasyDict(), EasyDict()
+                for name, term in fns.terms.items():
+                    tik = time.time()
+                    loss_d[name] = float(term(bundle, ws, x, crop_pos))  # waits for the device
+                    time_d[f"time_{name[len('loss_'):]}"] = time.time() - tik
+            loss_d["loss"] = (-loss_d.get("loss_latent", 0.0) - loss_d.get("loss_pix", 0.0)
+                              - loss_d.get("loss_lpips", 0.0) + loss_d.get("loss_disc", 0.0))
+            carry, aux = fns.adam_step(bundle, carry, epoch, crop_pos)
+            steps.append(aux)
+            self._sync()
+            time_d["time_epoch"] = time.time() - tick_epoch
+            self.stats_loss[f"epoch_{epoch}"] = loss_d
+            self.stats_time[f"epoch_{epoch}"] = time_d
+            desc = " ".join(f"{k} {v:<4.2f}" for k, v in loss_d.items())
+            desc += " ||| " + " ".join(f"{k} {v:<4.3f}" for k, v in time_d.items())
+            print(f"epoch {epoch + 1:>4d}/{self.num_epochs}, {desc}")
+            if w0.shape[0] == 1 and fname:
+                # snap_w saves the w after this step, snap_img the image
+                # synthesized from the w before it: frame e pairs w_{e+1}
+                # with img_e, the pairing analysis/create_gif expects.
+                self.snap_w(carry[0], epoch, fname[0])
+                self.snap_img(x, epoch, fname[0])
+        self.snapshot_stats(self.stats_loss, title="losses")
+        self.snapshot_stats(self.stats_time, title="times [s]")
+        self.last_traces = ({k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+                            if steps else {})
+        return fns.finish(bundle, w0, carry[0], self._synth_gen)
+
+    def snap_w(self, w, epoch, fname):
+        """Pickle the step-`epoch` latent as w_<fname>_<epoch>.pkl."""
+        name = util_path.get_filename_without_extension(fname)
+        with open(os.path.join(self.save_dir, f"w_{name}_{epoch}.pkl"), "wb") as f:
+            pickle.dump(w.detach().float().cpu().numpy().squeeze(), f,
+                        pickle.HIGHEST_PROTOCOL)
+
+    def snap_img(self, img, epoch, fname):
+        """PNG of [A | B] side by side as <fname>_<epoch>.png."""
+        from PIL import Image
+
+        name = util_path.get_filename_without_extension(fname)
+        arr = img.detach().float().cpu().numpy()[0]  # [modes, H, W]
+        strip = np.clip(np.concatenate(list(arr), axis=1), -1.0, 1.0)
+        strip = ((strip + 1.0) / 2.0 * 255.0).astype(np.uint8)
+        Image.fromarray(strip, mode="L").save(
+            os.path.join(self.save_dir, f"{name}_{epoch}.png"))
+
+    def _record_traces(self, traces, wall):
+        """Store the fused walk's per-step losses and its wall time."""
+        traces = {k: v.float().cpu().numpy() for k, v in traces.items()}
+        for epoch in range(self.num_epochs):
+            self.stats_loss[f"epoch_{epoch}"] = EasyDict(
+                {name: float(vals[epoch]) for name, vals in traces.items()})
+        self.stats_time["last_forward_s"] = wall
+
+    def snapshot_stats(self, stats=None, title="losses"):
+        """Dump loss/time curves to <title>.jsonl, and one PNG per curve
+        where matplotlib is installed."""
+        stats = stats if stats is not None else self.stats_loss
+        # Per-step dict entries only (stats_time also holds 'last_forward_s').
+        stats = {k: v for k, v in stats.items() if isinstance(v, dict)}
+        with open(os.path.join(self.save_dir, f"{title}.jsonl"), "w") as f:
+            f.write(json.dumps(stats, indent=2) + "\n")
+        try:
+            import matplotlib
+        except ImportError:
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        ticks = list(stats.values())
+        for kk in (ticks[0] if ticks else ()):
+            fig = plt.figure()
+            plt.plot([t[kk] for t in ticks], label=kk)
+            plt.xlabel("epochs")
+            plt.ylabel(title)
+            plt.legend()
+            fig.savefig(os.path.join(self.save_dir, f"{title}_{kk}.png"), dpi=150,
+                        format="png")
+            plt.close(fig)
 
     # ------------------------------------------------------------------
     # Manifold statistics
@@ -410,10 +573,14 @@ class LatentAugEngine:
         """LPIPS embedding of one [modes, H, W] raw [0,255] image crop."""
         x = self._to_device(np.asarray(img, dtype=np.float32)[mode_id][None, None])
         x = manifold.get_transform(self.res, self.crop_size, self.preprocess, params)(x)
-        return vgg.lpips_features(self.vgg_params, x.repeat(1, 3, 1, 1)).cpu().numpy()
+        x = x.repeat(1, 3, 1, 1)
+        if self.lpips_variant == "script":
+            return vgg.lpips_features(self.vgg_params, x).cpu().numpy()
+        return embedding_from_params(self.vgg_params, self.lpips_lin,
+                                     x / 127.5 - 1.0).cpu().numpy()
 
 
-def define_latentaugment(module_name, phase, opt, save_dir, device):
+def define_latentaugment(module_name, phase, opt, save_dir, device, mesh=None):
     if module_name == "latent_aug":
-        return LatentAugEngine(phase, opt, save_dir, device)
+        return LatentAugEngine(phase, opt, save_dir, device, mesh=mesh)
     raise NotImplementedError(f"Module name [{module_name}] is not recognized")

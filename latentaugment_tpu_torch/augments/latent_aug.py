@@ -3,11 +3,12 @@
 
 The p_thres train-only gate, rand_aug mode (zeroes all loss weights and
 samples z ~ N(0, I)), w lookup from the inversion zip, A/B channel
-concat, output split with optional lower-bound clip, latent accessors
-and per-batch wall times. Data is NumPy at the API boundary (NCHW
-float32); the engine moves it to `--device`.
+concat, output split with optional lower-bound clip, latent accessors,
+per-batch wall times and the sanity_check PNG dumps. Data is NumPy at
+the API boundary (NCHW float32); the engine moves it to `--device`.
 """
 
+import os
 import pickle
 import random
 import time
@@ -15,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils import util_path
 from . import engine as engine_mod
 from .base_aug import BaseAugment
 
@@ -22,6 +24,19 @@ from .base_aug import BaseAugment
 def reverse_broadcasting(latent):
     """[B, num_ws, w_dim] -> [B, 1, w_dim]."""
     return latent[:, :1, :]
+
+
+def map_range(x, old_min=-1000, old_max=2000, new_min=-1, new_max=1):
+    return (((x - old_min) * (new_max - new_min)) / (old_max - old_min)) + new_min
+
+
+def check_slice(img, res):
+    """One modality of one sample: a float32 array [1, res, res]."""
+    if not isinstance(img, np.ndarray) or img.dtype != np.float32:
+        raise TypeError(f"expected a float32 numpy array, got {type(img).__name__} "
+                        f"{getattr(img, 'dtype', '')}")
+    if img.shape != (1, res, res):
+        raise ValueError(f"expected shape {(1, res, res)}, got {img.shape}")
 
 
 class LatentAugment(BaseAugment):
@@ -44,6 +59,8 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--network_pkl_stylegan', help='', metavar='DIR', default="network-snapshot-005320.pkl")
         # Inversion options.
         parser.add_argument('--dataset_w_name', help='', metavar='DIR', default="Pelvis_2.1_repo_no_mask-num-375_train-0.70_val-0.20_test-0.10-expinv_00001")
+        parser.add_argument('--exp_inv', help='', metavar='DIR', default="00001")
+        parser.add_argument('--network_pkl_inv', help='', metavar='DIR', default="")
 
         # Augmentation options.
         parser.add_argument('--truncation_psi', help='Truncation value.', type=float, default=1.0)
@@ -51,6 +68,7 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--lower_bound_clip', action='store_true', help='Clip the pixels values under -1 to -1.')
         parser.add_argument('--step_img', help='Selection step to create the image dataset from which compute the distances.', type=int, default=20)
         parser.add_argument('--step_w', help='Selection step to create the latent dataset from which compute the distances.', type=int, default=5)
+        parser.add_argument('--lpips_script', help="How to extract the features manifold: 'lpips_script' (five-tap VGG16 embedding) or 'lpips_tr' (the local LPIPS criterion's three taps).", type=str, default='lpips_script')
         parser.add_argument('--lpips_ref_input', help='Feed raw [-1,1] synthetic crops to the LPIPS VGG (default: the [0,255] scale the manifold features use).', action='store_true')
         parser.add_argument('--opt_num_epochs', help='Number of optimization steps', type=int, default=10)
         parser.add_argument('--opt_lr', help='Learning rate of optimization algorithm', type=float, default=0.01)
@@ -68,6 +86,7 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--p_thres', help='Augmentation probability.', type=float, default=1.0)
         parser.add_argument('--soft_aug', help='Activate smooth augmentation via interpolation.', type=str2bool, default=False)
         parser.add_argument('--alpha', help='Value for linear interpolation in soft_aug.', type=float, default=1.0)
+        parser.add_argument('--verbose_log', help='Print losses and time during the optimization process.', type=str2bool, default=False)
         return parser
 
     def __init__(self, opt):
@@ -79,6 +98,7 @@ class LatentAugment(BaseAugment):
         self.lower_bound_clip = opt.lower_bound_clip
         self.p_thres = opt.p_thres
         self.init_w = opt.init_w
+        self.verbose_log = opt.verbose_log
         self.stats_time = []
         self._rng = random.Random(opt.seed)
         self._z_gen = torch.Generator().manual_seed(opt.seed)
@@ -103,6 +123,11 @@ class LatentAugment(BaseAugment):
             raise NotImplementedError(f"phase {self.phase!r}")
 
     # ------------------------------------------------------------------
+
+    def input_sanity_check(self, img):
+        check_slice(img, self.opt.load_size)
+
+    output_sanity_check = input_sanity_check
 
     def set_input(self, data):
         if data['A_paths'] != data['B_paths']:
@@ -151,7 +176,7 @@ class LatentAugment(BaseAugment):
                 self.w_AB = self.w_AB_aug = ws.cpu().numpy()
             elif self.init_w == 'inv':
                 self.w_AB = self.sample_from_inversion(self.fname)
-                img, ws = self.latent_aug.forward(self.w_AB)
+                img, ws = self.latent_aug.forward(self.w_AB, self.fname)
                 self.w_AB_aug = ws.cpu().numpy()
             else:
                 raise NotImplementedError(f"init_w {self.init_w!r}")
@@ -162,7 +187,17 @@ class LatentAugment(BaseAugment):
             self.augmented = False
             self.w_AB = self.w_AB_aug = None
             self.real_AB_aug = self.real_AB
-        self.stats_time.append(time.time() - since)
+        time_elapsed = time.time() - since
+        if self.verbose_log:
+            print('{} {:.0f}m {:.3f}s'.format(
+                'Augmentation completed in' if self.augmented else 'No augmentation, time',
+                time_elapsed // 60, time_elapsed % 60))
+        self.stats_time.append(time_elapsed)
+
+    # ------------------------------------------------------------------
+
+    def sanity_check(self):
+        sanity_check(self)
 
     # ------------------------------------------------------------------
 
@@ -179,3 +214,43 @@ class LatentAugment(BaseAugment):
         # Pad a partial final batch by repeating the last real row.
         w[len(fname):] = w[len(fname) - 1]
         return reverse_broadcasting(w)
+
+
+def sanity_check(augment):
+    """Check the first sample of the augment's current input, run its
+    forward, check the output, and dump both as <fname>.png and
+    <fname>aug.png."""
+    augment.input_sanity_check(augment.real_A[0])
+    augment.input_sanity_check(augment.real_B[0])
+    visualize(augment.real_A[0], augment.real_B[0],
+              util_path.get_filename_without_extension(augment.fname[0]), augment.save_dir)
+    augment.forward()
+    data = augment.get_output()
+    augment.output_sanity_check(data['A'][0])
+    augment.output_sanity_check(data['B'][0])
+    visualize(data['A'][0], data['B'][0],
+              util_path.get_filename_without_extension(data['A_paths'][0]) + 'aug',
+              augment.save_dir)
+
+
+def visualize(imgA, imgB, img_name, save_dir):
+    """[A | B] side by side as <save_dir>/<img_name>.png; nothing is
+    written where matplotlib is not installed."""
+    imgA, imgB = np.asarray(imgA), np.asarray(imgB)
+    if imgA.ndim == 2:
+        img = np.concatenate([imgA, imgB], axis=1)
+    else:
+        img = np.concatenate([imgA[0], imgB[0]], axis=1)
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=plt.figaspect(img))
+    fig.subplots_adjust(0, 0, 1, 1)
+    ax.imshow(img, cmap='gray')
+    plt.axis('off')
+    fig.savefig(os.path.join(save_dir, f"{img_name}.png"), dpi=150, format='png')
+    plt.close(fig)

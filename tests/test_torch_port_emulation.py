@@ -26,6 +26,7 @@ import torch
 from latentaugment_tpu_torch.ops import _build
 from latentaugment_tpu_torch.ops import filtered_lrelu as fl
 from latentaugment_tpu_torch.ops import upfirdn2d as up
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}

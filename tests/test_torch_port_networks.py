@@ -27,6 +27,7 @@ from latentaugment_tpu.models.stylegan2 import networks as net_j
 from latentaugment_tpu_torch.models import vgg as vgg_t
 from latentaugment_tpu_torch.models.stylegan2 import checkpoint as ckpt_t
 from latentaugment_tpu_torch.models.stylegan2 import networks as net_t
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 CFG = dict(img_resolution=32, img_channels=2, channel_base=1024, channel_max=64)

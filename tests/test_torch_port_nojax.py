@@ -1,8 +1,13 @@
-"""The PyTorch port runs without JAX: in a fresh interpreter, importing the
-port, running its policy and an alias-free generator on the CPU loads no
-`jax` module and nothing of the JAX package `latentaugment_tpu`. And `--device cuda` without CUDA
-raises instead of running on the CPU."""
+"""The PyTorch port runs without JAX: in a fresh interpreter, importing
+every module of the port and its projector script, and running its
+policies, its projector command line, an alias-free generator and a
+metric on the CPU loads no `jax` module, no `click` and nothing of the JAX
+package `latentaugment_tpu`. No source file of the port, nor
+`chip_smoke.py`, nor the port's scripts, names such an import. And
+`--device cuda` without CUDA raises instead of running on the CPU."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -13,9 +18,17 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
-import sys, tempfile
+import importlib, os, pkgutil, sys, tempfile
 import numpy as np
 import latentaugment_tpu_torch
+for m in pkgutil.walk_packages(latentaugment_tpu_torch.__path__, "latentaugment_tpu_torch."):
+    importlib.import_module(m.name)
+for name in ("augments.criteria.lpips", "augments.criteria.nst", "augments.geometric_aug",
+             "data.write_tozip", "metrics.frechet_inception_distance",
+             "metrics.metric_main_mi_multimodal", "metrics.metric_utils",
+             "metrics.precision_recall", "models.inception", "models.lpips_backbones",
+             "models.stylegan2.projector", "utils.util_url"):
+    assert "latentaugment_tpu_torch." + name in sys.modules, name
 from latentaugment_tpu_torch import augments, benchmark, data, models, options, utils
 from latentaugment_tpu_torch.models.stylegan3 import filters, networks as sg3
 from latentaugment_tpu_torch.ops import filtered_lrelu
@@ -41,8 +54,30 @@ G = sg3.Generator(sg3.generator_config(img_resolution=32, num_layers=3, channel_
                                        channel_max=8, z_dim=16, w_dim=16))
 with torch.no_grad():
     assert torch.isfinite(G(torch.randn(2, 16))).all()
+# The classical policy, the projector's command line and a metric.
+gopt = AugOptions().parse(argv=["--dataroot", "x.zip", "--checkpoints_dir", root, "--aug",
+                                "geometric", "--affine", "--elastic_deform", "--p_thres", "0",
+                                "--device", "cpu", "--load_size", "32"], install_logger=False)
+geo = create_augment(gopt)
+geo.set_input(data)
+geo.forward()
+assert geo.get_output()["B"].shape == (4, 1, 32, 32)
+from scripts.torch_project_dataset import main as project_main
+inv = os.path.join(root, "inv.zip")
+project_main(["--checkpoint", argv[argv.index("--model_dir") + 1], "--data_zip",
+              argv[argv.index("--dataroot") + 1], "--resolution", "32", "--num_steps", "2",
+              "--batch_size", "4", "--w_avg_samples", "16", "--outdir",
+              os.path.join(root, "proj"), "--dest_zip", inv, "--device", "cpu"])
+assert os.path.getsize(inv) > 0
+from latentaugment_tpu_torch.metrics import precision_recall
+rng = np.random.RandomState(0)
+p, r = precision_recall.knn_precision_recall(rng.randn(20, 8), rng.randn(20, 8), device="cpu")
+assert 0.0 <= p <= 1.0 and 0.0 <= r <= 1.0
+from latentaugment_tpu_torch.augments.criteria import LPIPS
+assert LPIPS("squeeze", device="cpu")(np.zeros((1, 3, 32, 32), np.float32),
+                                      np.ones((1, 3, 32, 32), np.float32)).shape == (1,)
 loaded = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "click"
                 or m == "latentaugment_tpu" or m.startswith("latentaugment_tpu."))
 assert "latentaugment_tpu_torch.data.pelvis_dataset" in sys.modules
 print("LOADED", loaded)
@@ -52,10 +87,38 @@ print("LOADED", loaded)
 def test_port_policy_runs_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"  # the suite's workers share few cores
     r = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path)], cwd=str(tmp_path),
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, f"stdout:\n{r.stdout[-3000:]}\nstderr:\n{r.stderr[-3000:]}"
     assert "LOADED []" in r.stdout, r.stdout[-2000:]
+
+
+def _port_sources():
+    files = glob.glob(os.path.join(REPO, "latentaugment_tpu_torch", "**", "*.py"), recursive=True)
+    files += glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
+    files = _port_sources()
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"chip_smoke.py", "scripts/torch_project_dataset.py",
+            "latentaugment_tpu_torch/metrics/metric_utils.py",
+            "latentaugment_tpu_torch/augments/geometric_aug.py"} <= names
+    banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in banned, f"{path}:{node.lineno} imports {mod}"
 
 
 def test_device_cuda_without_cuda_raises(tmp_path):

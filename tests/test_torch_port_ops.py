@@ -31,6 +31,7 @@ from latentaugment_tpu_torch.ops import bias_act as bias_act_t
 from latentaugment_tpu_torch.ops import conv2d_resample as c2r_t
 from latentaugment_tpu_torch.ops import modulated_conv as modconv_t
 from latentaugment_tpu_torch.ops import upfirdn2d as upfirdn_t
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 # latentaugment_tpu.ops re-exports functions under their modules' names.
 bias_act_j = importlib.import_module("latentaugment_tpu.ops.bias_act")

@@ -8,6 +8,7 @@ import json
 import pytest
 
 from latentaugment_tpu_torch import profile_walk
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 SMALL = ["--device", "cpu", "--batch", "4", "--res", "32", "--channel_base", "256",
          "--channel_max", "32", "--crop_size", "16", "--num_epochs", "2", "--reps", "1"]

@@ -43,6 +43,7 @@ from latentaugment_tpu_torch.models.stylegan3 import filters as filters_t
 from latentaugment_tpu_torch.models.stylegan3 import networks as net3_t
 from latentaugment_tpu_torch.ops import filtered_lrelu as fl_t
 from latentaugment_tpu_torch.options import AugOptions as AugOptions_t
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 W_ATOL = 1e-3

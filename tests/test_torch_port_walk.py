@@ -10,7 +10,12 @@ the JAX package, on the CPU.
     create_augment -> set_input / forward / get_output in each package,
     two batches (the second partial, so padded). The workspace's noise
     strengths are zero, so the final images (random noise in both) are
-    comparable too.
+    comparable too. Once with the default LPIPS embedding and once with
+    `--lpips_script lpips_tr`, the local criterion's three taps.
+  * The policy's surface beside forward: the options the JAX policy
+    takes, sanity_check, the engine's synthetize / broadcasting /
+    snapshot_stats, and the verbose walk, whose trajectory is the fused
+    walk's.
 
 Tolerance: rtol 1e-4 on composed float32 programs (G, D and VGG16
 forward and backward); atol 1e-5 on entries near 0. The final w gets
@@ -22,6 +27,7 @@ therefore held against the other package's synthesis of the same w.
 """
 
 import os
+import pickle
 import random
 import shutil
 
@@ -48,6 +54,7 @@ from latentaugment_tpu_torch.models import vgg as vgg_t
 from latentaugment_tpu_torch.models.stylegan2 import checkpoint as ckpt_t
 from latentaugment_tpu_torch.models.stylegan2 import networks as net_t
 from latentaugment_tpu_torch.options import AugOptions as AugOptions_t
+from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL = 1e-4, 1e-5
 W_ATOL = 1e-3  # final w after K Adam steps (see the module docstring)
@@ -157,9 +164,9 @@ def test_walk_final_w_and_image_match_jax(walked):
 # ----------------------------------------------------------------------------
 # The policy, end to end.
 
-@pytest.fixture(scope="module")
-def policies(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("policy"))
+def _run_policies(root, common=()):
+    """Both packages' policies over one new workspace under `root`, with
+    the extra options `common` given to both."""
     argv = benchmark_t.build_policy_workspace(
         root, res=RES, batch_size=B, num_epochs=K, crop_size=CROP,
         channel_base=1024, channel_max=64, n_patients=2, slices_per_patient=3, step=5)
@@ -171,7 +178,7 @@ def policies(tmp_path_factory):
         # its own checkpoints dir, so neither reads the other's caches.
         interim = os.path.join(root, f"interim_{flavour}")
         shutil.copytree(os.path.join(root, "interim"), interim)
-        args = list(argv) + extra
+        args = list(argv) + list(common) + extra
         args[args.index("--interim_dir") + 1] = interim
         args[args.index("--checkpoints_dir") + 1] = os.path.join(root, f"ckpts_{flavour}")
         options, create_dataset, create_augment = {
@@ -216,6 +223,17 @@ def policies(tmp_path_factory):
                                  jax.random.PRNGKey(0))
         rec["traces"] = {k: np.asarray(v) for k, v in traces.items()}
     return aug_j, batches_j, aug_t, batches_t
+
+
+@pytest.fixture(scope="module")
+def policies(tmp_path_factory):
+    return _run_policies(str(tmp_path_factory.mktemp("policy")))
+
+
+@pytest.fixture(scope="module")
+def policies_tr(tmp_path_factory):
+    return _run_policies(str(tmp_path_factory.mktemp("policy_tr")),
+                         ["--lpips_script", "lpips_tr"])
 
 
 def test_policy_batches_and_latents_match_jax(policies):
@@ -285,3 +303,165 @@ def test_policy_skips_batch_above_p_thres(policies, tmp_path):
     np.testing.assert_array_equal(aug_t.get_output()["B"], x + 0.5)
     with pytest.raises(RuntimeError):
         aug_t.get_latent_output()
+
+
+# ----------------------------------------------------------------------------
+# The local LPIPS criterion (--lpips_script lpips_tr) and the policy's
+# surface beside forward.
+
+def test_tr_policy_step_losses_and_latents_match_jax(policies_tr):
+    aug_j, batches_j, aug_t, batches_t = policies_tr
+    assert aug_t.latent_aug.lpips_variant == aug_j.latent_aug.lpips_variant == "tr"
+    for bj, bt in zip(batches_j, batches_t, strict=True):
+        for key in LOSS_KEYS:
+            _close(bt["traces"][key], bj["traces"][key])
+        _close(bt["w_in"], bj["w_in"], rtol=0, atol=0)
+        _close(bt["w_out"], bj["w_out"], rtol=0, atol=W_ATOL)
+    for (mean_t, msq_t), (mean_j, msq_j) in zip(aug_t.latent_aug.fea_summaries,
+                                                aug_j.latent_aug.fea_summaries, strict=True):
+        assert mean_t.shape[-1] == 256 * 4 * 4 + 512 * 2 * 2 + 512  # three taps of a 16x16 crop
+        _close(mean_t, mean_j)
+        _close(msq_t, msq_j)
+
+
+def test_feature_caches_of_the_two_lpips_variants_have_different_names(policies, policies_tr):
+    """Both variants' manifold features may share one interim tree."""
+    def feature_caches(aug):
+        eng = aug.latent_aug
+        cache_dir = os.path.join(eng.interim_dir, eng.dataset, "cache_dir")
+        return sorted(f for f in os.listdir(cache_dir) if "features_jit" in f)
+
+    script, tr = feature_caches(policies[2]), feature_caches(policies_tr[2])
+    assert len(script) == len(tr) == N_MODES
+    assert all("-script-features_jit" in f for f in script), script
+    assert all("-tr-features_jit" in f for f in tr), tr
+    assert feature_caches(policies_tr[0]) == tr  # the JAX package's names
+
+
+def test_options_of_the_jax_policy_parse(tmp_path):
+    """A command line the JAX policy takes runs on the port's parser, with
+    the same defaults."""
+    base = ["--dataroot", "x.zip", "--aug", "latent", "--model_dir", "m", "--interim_dir", "i",
+            "--checkpoints_dir", str(tmp_path)]
+    extra = ["--lpips_script", "lpips_tr", "--verbose_log", "true", "--exp_inv", "00002",
+             "--network_pkl_inv", "network-snapshot-000100.pkl"]
+    opt = AugOptions_t().gather_options(base + extra)
+    assert (opt.lpips_script, opt.verbose_log, opt.exp_inv, opt.network_pkl_inv) == \
+        ("lpips_tr", True, "00002", "network-snapshot-000100.pkl")
+    opt_t, opt_j = AugOptions_t().gather_options(base), AugOptions_j().gather_options(base)
+    for k in ("lpips_script", "verbose_log", "exp_inv", "network_pkl_inv"):
+        assert getattr(opt_t, k) == getattr(opt_j, k)
+
+
+def test_sanity_check_runs_and_writes_both_pictures(policies):
+    from latentaugment_tpu_torch.augments import latent_aug as latent_aug_t
+
+    aug_t, batches_t = policies[2], policies[3]
+    assert latent_aug_t.map_range(500.0) == 0.0
+    aug_t.p_thres = 0.0
+    aug_t.set_input(batches_t[0]["data"])
+    aug_t.sanity_check()
+    assert aug_t.augmented
+    name = os.path.splitext(os.path.basename(batches_t[0]["paths"][0]))[0]
+    for f in (f"{name}.png", f"{name}aug.png"):
+        assert os.path.getsize(os.path.join(aug_t.save_dir, f)) > 0
+    with pytest.raises(ValueError):
+        aug_t.input_sanity_check(np.zeros((1, RES, RES + 1), np.float32))
+    with pytest.raises(TypeError):
+        aug_t.output_sanity_check(np.zeros((1, RES, RES), np.float64))
+
+
+def test_engine_synthetize_broadcasting_and_snapshot_stats(policies):
+    eng = policies[2].latent_aug
+    w = np.random.RandomState(0).randn(2, 1, eng.w_dim).astype(np.float32)
+    ws = eng.broadcasting(w)
+    assert ws.shape == (2, eng.num_ws, eng.w_dim)
+    np.testing.assert_array_equal(eng.reverse_broadcasting(ws), w)
+    assert tuple(eng.broadcasting(torch.from_numpy(w)).shape) == ws.shape
+    with pytest.raises(ValueError):
+        eng.broadcasting(ws)
+    img = eng.synthetize(ws)
+    assert tuple(img.shape) == (2, N_MODES, RES, RES) and torch.isfinite(img).all()
+    torch.testing.assert_close(img, eng.synthetize(ws))  # the default generator is seeded
+    with pytest.raises(ValueError):
+        eng.synthetize(w)
+    eng._record_traces({"loss": torch.arange(float(K))}, wall=1.5)
+    assert eng.stats_time["last_forward_s"] == 1.5
+    eng.snapshot_stats(title="recorded")
+    with open(os.path.join(eng.save_dir, "recorded.jsonl")) as f:
+        assert '"epoch_2"' in f.read()
+    with pytest.raises(NotImplementedError, match="DDP slice"):
+        engine_t.define_latentaugment("latent_aug", "train", None, None, None, mesh=object())
+
+
+@pytest.fixture(scope="module")
+def verbose_policy(policies):
+    """The port's policy again on its workspace (the caches are there),
+    with --verbose_log: its first batch runs the un-fused walk."""
+    aug_t, batches_t = policies[2], policies[3]
+    argv = ["--dataroot", aug_t.opt.dataroot, "--checkpoints_dir",
+            os.path.join(aug_t.opt.checkpoints_dir, "verbose")]
+    for k, v in vars(aug_t.opt).items():
+        if k in ("dataset_mode", "load_size", "batch_size", "aug", "model_dir", "interim_dir",
+                 "dataset_aug", "dataset_name_aug", "dataset_w_name", "img_resolution",
+                 "crop_size_aug", "init_w", "step_img", "step_w", "opt_num_epochs", "opt_lr",
+                 "w_lpips", "w_pix", "w_latent", "w_disc", "num_fp16_res", "device"):
+            argv += [f"--{k}", str(v)]
+    opt = AugOptions_t().parse(argv=argv + ["--p_thres", "0.0", "--verbose_log", "true"],
+                               install_logger=False)
+    # The VGG16 weights the fused policy ran with.
+    old = os.environ.get("LATENTAUGMENT_VGG16")
+    os.environ["LATENTAUGMENT_VGG16"] = os.path.join(
+        os.path.dirname(aug_t.opt.checkpoints_dir), "vgg16.pkl")
+    try:
+        aug = create_augment_t(opt)
+    finally:
+        if old is None:
+            os.environ.pop("LATENTAUGMENT_VGG16")
+        else:
+            os.environ["LATENTAUGMENT_VGG16"] = old
+    aug.set_input(batches_t[0]["data"])
+    aug.forward()
+    return aug
+
+
+def test_verbose_walk_takes_the_fused_walks_trajectory(policies, verbose_policy):
+    fused = policies[3][0]
+    eng = verbose_policy.latent_aug
+    np.testing.assert_allclose(verbose_policy.get_latent_output()["w"], fused["w_out"],
+                               rtol=0, atol=1e-6)
+    for key in LOSS_KEYS:
+        np.testing.assert_allclose(eng.last_traces[key].numpy(), fused["traces"][key],
+                                   rtol=1e-6, atol=1e-7)
+        # The terms evaluated one by one are the fused loss's terms.
+        np.testing.assert_allclose([eng.stats_loss[f"epoch_{e}"][key] for e in range(K)],
+                                   fused["traces"][key], rtol=1e-5, atol=1e-6)
+    times = eng.stats_time["epoch_0"]
+    assert {"time_latent", "time_disc", "time_pix", "time_lpips", "time_epoch"} <= set(times)
+    assert eng.stats_time["last_forward_s"] >= times["time_epoch"]
+    for title in ("losses", "times [s]"):
+        assert os.path.isfile(os.path.join(eng.save_dir, f"{title}.jsonl"))
+
+
+def test_verbose_walk_snapshots_pair_next_w_with_this_image(verbose_policy):
+    """At batch 1 each step leaves w_<name>_<e>.pkl, the w after step e,
+    beside <name>_<e>.png, the image of the w before it."""
+    from PIL import Image
+
+    eng = verbose_policy.latent_aug
+    eng._verbose_done = False
+    w0 = np.random.RandomState(3).randn(1, 1, eng.w_dim).astype(np.float32) * 0.5
+    eng.forward(w0, fname=["train/p/train_p_00010.pickle"])
+    snaps = []
+    for e in range(K):
+        with open(os.path.join(eng.save_dir, f"w_train_p_00010_{e}.pkl"), "rb") as f:
+            snaps.append(pickle.load(f))
+        assert snaps[-1].shape == (eng.w_dim,)
+    assert np.abs(snaps[0] - w0[0, 0]).max() > 1e-3  # already one step away from w0
+    with torch.no_grad():
+        img0 = eng.G.synthesis(eng.broadcasting(torch.from_numpy(w0)), noise_mode="const")[0]
+    strip = np.clip(np.concatenate(list(img0.numpy()), axis=1), -1.0, 1.0)
+    want = ((strip + 1.0) / 2.0 * 255.0).astype(np.uint8)
+    got = np.asarray(Image.open(os.path.join(eng.save_dir, "train_p_00010_0.png")))
+    assert got.shape == (RES, N_MODES * RES)
+    np.testing.assert_array_equal(got, want)
