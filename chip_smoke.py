@@ -15,7 +15,7 @@ line.
      off) and bfloat16, timing both (median of 20, CUDA events), with
      each case's bound (the larger of its bytes over 3.35 TB/s and its
      fp32 operations over 67 TFLOP/s, from the wrappers' `work`) and,
-     for the two upfirdn2d cases one PyTorch call computes (a depthwise
+     for the three upfirdn2d cases one PyTorch call computes (a depthwise
      `F.conv2d` with the 4x4 filter), that call's time. filtered_lrelu's
      record (2 bits per up-rate pixel) is compared unpacked.
   2. Small reference: a 32x32 StyleGAN2 walk and a 64x64 StyleGAN3 walk
@@ -54,8 +54,24 @@ line.
      noise) with the kernels against the plain versions, then FID and
      precision/recall of the live StyleGAN2 generator (512 generated
      images) against phase 3's 96 slices, with the launch counts read.
+  9. The trainer at the operating point's widths (StyleGAN2 G and D at
+     256x256, 2 modalities, channel_base 32768, channel_max 512, 2 mapping
+     layers, conv_clamp 256, bf16 in the top 4 resolutions, batch 32, path
+     length at 16, no remat, seeded random weights): the four phase losses
+     (const noise, no mixing, no ADA) and every parameter gradient with the
+     kernels against the plain versions, in float32 (losses 1e-2 relative,
+     gradients 2e-2 of max |plain|) and with the bf16 top blocks (losses
+     1e-2, gradient errors recorded); then `train_loop` with ADA bgc at a fixed
+     p = 0.2, random noise and style mixing 0.9 for one warm-up step and
+     16 timed ones (one d_reg_interval: 4 path-length and 1 R1 phases),
+     with s/step, images/s, the peak memory and the launches over the 16
+     steps (second-order ones included, which must be > 0); each phase
+     once alone (CUDA events), then under torch.profiler (device time by
+     kind of kernel); the final snapshot loads back.
 
-No launch of phases 5, 6 and 8 may go through a kernel's `generic`
+Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
+the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
+No launch of phases 5, 6, 8 and 9 may go through a kernel's `generic`
 variant. The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
@@ -252,7 +268,7 @@ def phase_kernels(torch, ba, up, dev):
         ("G blur after up-conv (257->256)", [BATCH, 128, RES + 1, RES + 1], f32, dict(padding=1, gain=4),
          ("u1d1", "u1d1"), None),
         ("D blur before stride-2 (256->257)", [BATCH, 128, RES, RES], bf16, dict(padding=2),
-         ("u1d1", "u1d1"), None),
+         ("u1d1", "u1d1"), (1, 2)),
         ("D 1x1 skip down=2 (256->128)", [BATCH, 128, RES, RES], bf16, dict(down=2, padding=1),
          ("u1d2", "u2d1"), (2, 1)),
         ("skip-image upsample2d (128->256)", [BATCH, 2, RES // 2, RES // 2], f32,
@@ -282,6 +298,89 @@ def phase_kernels(torch, ba, up, dev):
         del x
         torch.cuda.empty_cache()
     return bias_recs, up_recs
+
+
+def second_order(torch, fn, x, dy1, dy2):
+    """R1's and path length's pattern: g = d<fn(x), dy1>/dx with its graph,
+    then d<g, dy2>/d dy1 (d/dx is zero for these piecewise-linear ops and
+    autograd gives none). Returns (g, d/d dy1)."""
+    xg, d1 = x.detach().requires_grad_(True), dy1.detach().requires_grad_(True)
+    g, = torch.autograd.grad(fn(xg), xg, d1, create_graph=True)
+    gx, gdy = torch.autograd.grad(g, (xg, d1), dy2, allow_unused=True)
+    if gx is not None and gx.any():
+        raise AssertionError("a second derivative with respect to x appeared")
+    return g.detach(), gdy
+
+
+def phase_second_order(torch, ba, up, dev):
+    """K1 and K2 differentiated twice, as R1 and path length do, at the
+    trainer's shapes: kernels (impl='auto') and plain (impl='ref') on the
+    same tensors, with each side's time (forward, backward with its graph
+    and the second backward; CUDA events: the kernels' median of 10, the
+    plain side once)."""
+    log("phase 1c: second derivatives through K1 and K2 vs plain PyTorch")
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = {f32: "float32", bf16: "bfloat16"}
+    g = torch.Generator(device=dev).manual_seed(21)
+    f = up.setup_filter([1, 3, 3, 1], device=dev, separable=True)
+    shape = [BATCH, 128, RES, RES]
+    b = torch.randn([128], generator=g, device=dev)
+    # (name, dtype, function, (kernel, variants), K2's arguments for its bound)
+    cases = [
+        ("G conv 256x256 lrelu clamp", f32, lambda x, impl: ba.bias_act(
+            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl), ("bias_act", None), None),
+        ("G conv 256x256 lrelu clamp", bf16, lambda x, impl: ba.bias_act(
+            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl), ("bias_act", None), None),
+        ("D blur before stride-2 (256->257)", bf16, lambda x, impl: up.upfirdn2d(
+            x, f, padding=2, impl=impl), ("upfirdn2d", {"u1d1": 3}), dict(padding=2)),
+        ("D 1x1 skip down=2 (256->128)", bf16, lambda x, impl: up.upfirdn2d(
+            x, f, down=2, padding=1, impl=impl), ("upfirdn2d", {"u1d2": 2, "u2d1": 1}),
+         dict(down=2, padding=1)),
+    ]
+    recs = []
+    for name, dtype, fn, (kernel, variants), k2_args in cases:
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        dy1 = torch.randn(fn(x, "ref").shape, generator=g, device=dev).to(dtype)
+        dy2 = torch.randn(shape, generator=g, device=dev).to(dtype)
+        before_k = {k: v for c in (ba.launches, up.launches) for k, v in c.items()}
+        before_v = dict(up.variant_launches)
+        got = second_order(torch, lambda x: fn(x, "auto"), x, dy1, dy2)
+        launched = {k: v - before_k[k] for c in (ba.launches, up.launches) for k, v in c.items()}
+        used = {k: up.variant_launches[k] - before_v[k] for k in before_v
+                if up.variant_launches[k] != before_v[k]}
+        want_launches = ({"bias_act_fwd": 1, "bias_act_bwd": 1, "bias_act_bwd2": 1, "upfirdn2d": 0}
+                         if kernel == "bias_act" else
+                         {"bias_act_fwd": 0, "bias_act_bwd": 0, "bias_act_bwd2": 0, "upfirdn2d": 3})
+        if launched != want_launches or (variants is not None and used != variants):
+            raise AssertionError(f"{name}: second order launched {launched}, variants {used}")
+        want = second_order(torch, lambda x: fn(x, "ref"), x, dy1, dy2)
+        rec = {"case": name, "dtype": names[dtype], "shape": shape, "kernel": kernel,
+               "launches": launched, "variants": used}
+        check_close(rec, "grad", got[0], want[0], TOL_GRAD[names[dtype]])
+        check_close(rec, "grad2", got[1], want[1], TOL_GRAD[names[dtype]])
+        del got, want
+        rec["ms"] = median_ms(lambda: second_order(torch, lambda x: fn(x, "auto"), x, dy1, dy2),
+                              n=10)
+        # One timing of the plain side: its depthwise-conv double backward
+        # takes seconds in bfloat16.
+        rec["plain_ms"] = median_ms(lambda: second_order(torch, lambda x: fn(x, "ref"), x, dy1,
+                                                         dy2), n=1, warmup=0)
+        # The bound of the three launches: K1 moves x, y (forward), dy, y, dx
+        # (backward) and dy2, y, d/d dy (second order), 8 element passes; K2
+        # moves each launch's input and output, the forward's bytes 3 times.
+        if k2_args is None:
+            rec["bound_ms"], rec["bound_by"] = bound_ms(8 * x.numel() * x.element_size())
+        else:
+            w = up.work(shape, f.shape, itemsize=x.element_size(), **k2_args)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(3 * w["bytes"], 3 * w["macs"])
+        recs.append(rec)
+        log(f"  {name:34s} {rec['dtype']:8s} g err {rec['grad_rel_err']:.2e}, d/d dy err "
+            f"{rec['grad2_rel_err']:.2e} | fwd + bwd + 2nd bwd {rec['ms']:.3f} ms (plain "
+            f"{rec['plain_ms']:.3f}) | bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) | "
+            f"launches {launched}{', ' + str(used) if used else ''}")
+        del x, dy1, dy2
+        torch.cuda.empty_cache()
+    return recs
 
 
 def phase_flrelu(torch, fl, net3, dev):
@@ -499,7 +598,8 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
 
     batches, launches, setup_s, peak = run_policy(torch, argv, counters)
     check_batches(torch, np, batches, batch, arch)
-    launches, variants = read_counters(counters, arch, list(launches))
+    # Every kernel the walk runs (second derivatives belong to the trainer).
+    launches, variants = read_counters(counters, arch, [k for k in launches if k != "bias_act_bwd2"])
     kernel_sps = samples_per_s(batches, batch)
     log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
         f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
@@ -953,6 +1053,204 @@ def phase_metrics(torch, np, counters, need, slice_rec, dev):
     return rec
 
 
+def phase_train(torch, np, counters, need, dev):
+    """The trainer at the operating point's full width: step-0 phase losses
+    and gradients with the kernels against the plain versions, then
+    train_loop (ADA bgc at a fixed p, random noise, style mixing) for one
+    warm-up step and 16 timed ones, launches counted over those 16, the
+    final snapshot loaded back."""
+    from latentaugment_tpu_torch import profile_walk
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint, networks, train
+    from latentaugment_tpu_torch.models.stylegan2.networks import set_impl
+
+    steps, pl_batch = 16, BATCH // 2
+    log(f"phase 9: the trainer, StyleGAN2 {RES}x{RES}, batch {BATCH} (path length {pl_batch}), "
+        f"1 + {steps} steps")
+    net = dict(img_resolution=RES, img_channels=2, channel_base=32768, channel_max=512,
+               conv_clamp=256, num_fp16_res=4)
+    g_cfg = networks.generator_config(num_mapping_layers=2, **net)
+    d_cfg = networks.discriminator_config(**net)
+    root = os.path.join(REPO, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # Step 0, kernels against plain: const noise, no mixing, no ADA. In
+    # float32 (TF32 off) every parameter gradient is held to 2e-2 of its
+    # max |plain|; in the loop's bfloat16 top blocks the losses are held to
+    # 1e-2 and the gradients' errors recorded: there the plain side rounds
+    # at every op, and a gradient as small as the mapping's (lr multiplier
+    # 0.01) that sums every layer's style path differs by a few percent.
+    g32, d32 = (dict(c, num_fp16_res=0) for c in (g_cfg, d_cfg))
+    g32, d32 = networks.generator_config(**{k: g32[k] for k in checkpoint._G_CFG_KEYS}), \
+        networks.discriminator_config(**{k: d32[k] for k in checkpoint._D_CFG_KEYS})
+    fns = train.make_train_fns(g32, d32, train.train_config(
+        batch_size=BATCH, style_mixing_prob=0.0, noise_mode="const", aug="noaug"), device=dev)
+    state = fns.init_state(seed=0)
+    g = torch.Generator(device=dev).manual_seed(31)
+    z = torch.randn([BATCH, g_cfg.z_dim], generator=g, device=dev)
+    real = torch.rand([BATCH, 2, RES, RES], generator=g, device=dev) * 2 - 1
+    pl_noise = torch.randn([pl_batch, 2, RES, RES], generator=g, device=dev) / RES
+    pl_mean = torch.tensor(0.5, device=dev)
+    phases = {
+        "Gmain": (state.G, lambda: fns.loss_g_main(state.G, state.D, z, z, None, g, 0.0)[0]),
+        "Gpl": (state.G, lambda: fns.loss_g_pl(state.G, pl_mean, z[:pl_batch], z[:pl_batch], None,
+                                               g, pl_noise=pl_noise)[0]),
+        "Dmain": (state.D, lambda: fns.loss_d_main(state.D, state.G, real, z, z, None, g, 0.0)[0]),
+        "Dr1": (state.D, lambda: fns.loss_d_r1(state.D, real, None)[0]),
+    }
+    step0, plain32 = {}, {}
+    for dtype_name, n16 in (("float32", 0), ("bfloat16", g_cfg.num_fp16_res)):
+        state.G.cfg.num_fp16_res = state.D.cfg.num_fp16_res = n16
+        for phase, (module, loss_fn) in phases.items():
+            out = {}
+            for impl in ("auto", "ref"):
+                set_impl(state.G, impl)
+                set_impl(state.D, impl)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                loss = loss_fn()
+                out[impl] = (loss.item(), train._grads(loss, module), time.time() - t0)
+                del loss
+            set_impl(state.G, "auto")
+            set_impl(state.D, "auto")
+            (lk, gk, sk), (lp, gp, sp) = out["auto"], out["ref"]
+            if not (math.isfinite(lk) and abs(lk - lp) <= 1e-2 * abs(lp)):
+                raise AssertionError(f"trainer step 0 {dtype_name} {phase}: loss kernels {lk}, "
+                                     f"plain {lp}")
+            names = [n for n, _ in module.named_parameters()]
+
+            def worst_err(got, want, tol=math.inf):
+                return max((rel_close(a, b, tol, f"trainer step 0 {dtype_name} {phase} d/d {n}"), n)
+                           for n, a, b in zip(names, got, want))
+
+            worst = worst_err(gk, gp, TOL_GRAD["bfloat16"] if dtype_name == "float32" else math.inf)
+            rec0 = {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
+                    "grad_worst_rel_err": worst[0], "grad_worst_param": worst[1],
+                    "seconds_kernels": sk, "seconds_plain": sp}
+            extra = ""
+            if dtype_name == "float32":
+                plain32[phase] = gp
+            else:
+                # How far bf16 rounding alone moves the gradients: each side
+                # against the plain float32 ones (same weights and inputs).
+                rec0["plain_vs_float32"], rec0["kernels_vs_float32"] = \
+                    worst_err(gp, plain32[phase]), worst_err(gk, plain32[phase])
+                extra = (f"; against plain float32: plain {rec0['plain_vs_float32'][0]:.2e}, "
+                         f"kernels {rec0['kernels_vs_float32'][0]:.2e}")
+            step0[f"{phase} {dtype_name}"] = rec0
+            log(f"  step 0 {phase:5s} {dtype_name:8s}: loss kernels {lk:.6f} vs plain {lp:.6f} "
+                f"(rel {rec0['loss_rel_err']:.1e}), worst gradient {worst[0]:.2e} ({worst[1]})"
+                f"{extra}; loss + gradients {sk:.2f} s (plain {sp:.2f} s)")
+            del out, gk, gp
+    del state, fns, phases, plain32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The loop through its entry point: one warm-up step, then 16 timed.
+    cfg = train.train_config(batch_size=BATCH, aug="fixed", aug_p=0.2, aug_pipe="bgc",
+                             style_mixing_prob=0.9, noise_mode="random")
+    marks = {}
+
+    def timing(step, cur_nimg, st, p):
+        if step == 1 or step == 1 + steps:
+            torch.cuda.synchronize()
+            marks[step] = time.time()
+            if step == 1:
+                reset_counters(counters)
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                marks["launches"] = read_counters(counters, "trainer", need)
+                marks["peak"] = torch.cuda.max_memory_allocated()
+
+    def data():
+        rng = np.random.RandomState(0)
+        while True:
+            yield rng.rand(BATCH, 2, RES, RES).astype(np.float32) * 2 - 1, None
+
+    kimg = (1 + steps) * BATCH / 1000
+    state = train.train_loop(g_cfg, d_cfg, data(), cfg, total_kimg=kimg, run_dir=root, seed=0,
+                             snapshot_kimg=kimg, log_every=1 + steps, callbacks=[timing],
+                             device=dev)
+    wall = marks[1 + steps] - marks[1]
+    (launches, variants), peak = marks["launches"], marks["peak"]
+    rows = [json.loads(r) for r in open(os.path.join(root, "log.jsonl"))]
+    losses = {k: v for k, v in rows[-1].items() if k.startswith("Loss/")}
+    if len(rows) != 1 or rows[0]["step"] != 1 + steps or not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"trainer log: {rows}")
+    for k in ("bias_act_bwd2", "upfirdn2d"):
+        if launches[k] <= 0:
+            raise AssertionError(f"trainer: no {k} launches over {steps} steps")
+
+    # The snapshot loads back through the port's loader and is G_ema.
+    snaps = sorted(f for f in os.listdir(root) if f.startswith("network-snapshot-"))
+    g_params, g_cfg2, d_params, _ = checkpoint.load_stylegan(os.path.join(root, snaps[-1]))
+    G2 = networks.Generator(g_cfg2)
+    G2.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    for k, v in state.G_ema.state_dict().items():
+        if not torch.equal(G2.state_dict()[k], v.cpu()):
+            raise AssertionError(f"snapshot {snaps[-1]}: {k} differs from G_ema")
+    with torch.no_grad():
+        img = G2.to(dev)(torch.randn([4, g_cfg2.z_dim], device=dev))
+    if img.shape != (4, 2, RES, RES) or not torch.isfinite(img).all() or d_params is None:
+        raise AssertionError(f"snapshot {snaps[-1]}: G(z) {tuple(img.shape)}")
+    del G2, img
+
+    # Each phase once more, alone (CUDA events).
+    fns = train.make_train_fns(g_cfg, d_cfg, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(32)
+    z, z2 = (torch.randn([BATCH, g_cfg.z_dim], generator=g, device=dev) for _ in range(2))
+    real = torch.rand([BATCH, 2, RES, RES], generator=g, device=dev) * 2 - 1
+    p = torch.tensor(0.2, device=dev)
+
+    def once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    phase_fns = {
+        "Gmain": lambda: fns.g_main(state, z, z2, None, g, p),
+        "Gpl": lambda: fns.g_reg(state, z[:pl_batch], z2[:pl_batch], None, g, p),
+        "Dmain": lambda: fns.d_main(state, real, z, z2, None, g, p),
+        "Dr1": lambda: fns.d_reg(state, real, None, g, p),
+        "ema": lambda: fns.ema(state, 0.99)}
+    phase_ms = {k: once(fn) for k, fn in phase_fns.items()}
+    # Each phase once more under the profiler: device busy time, idle share
+    # and device time by kind of kernel (cuDNN's share in the second-order
+    # phases).
+    profiled = {}
+    for k in ("Gmain", "Gpl", "Dmain", "Dr1"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            phase_fns[k]()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, kinds, top = profile_walk._device_busy(prof)
+        profiled[k] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                           device_ms_by_kind=kinds, top_kernels=top[:8])
+        log(f"  {k} under the profiler: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (idle "
+            f"{1 - busy_ms / wall_ms:.1%}); device ms by kind "
+            + ", ".join(f"{kind} {ms:.1f}" for kind, ms in list(kinds.items())[:6]))
+    rec = dict(batch=BATCH, pl_batch=pl_batch, steps=steps, s_per_step=wall / steps,
+               images_per_s=steps * BATCH / wall, peak_mem_bytes=peak, phase_ms=phase_ms,
+               profiled_phases=profiled,
+               launches=launches, variant_launches=variants, step0=step0, last_log=rows[-1],
+               snapshot=snaps[-1])
+    log(f"  {steps} steps: {rec['s_per_step']:.4f} s/step, {rec['images_per_s']:.2f} images/s, "
+        f"peak memory {peak / 2**30:.2f} GiB; each phase alone: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in phase_ms.items()))
+    log(f"  launches over {steps} steps {launches}, by variant {variants}; last log {losses}; "
+        f"snapshot {snaps[-1]} loads back")
+    del state, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -987,6 +1285,7 @@ def main():
     log(f"  nvcc builds (side by side) took {time.time() - t0:.1f} s")
     bias_recs, up_recs = phase_kernels(torch, ba, up, dev)
     fl_recs = phase_flrelu(torch, fl, net3, dev)
+    second_recs = phase_second_order(torch, ba, up, dev)
     log(f"  phase 1 took {time.time() - t0:.1f} s (builds included)")
     small = {"stylegan2": phase_small_reference(torch, benchmark),
              "stylegan3": phase_small_reference(torch, benchmark, arch="stylegan3")}
@@ -994,18 +1293,21 @@ def main():
     all_counters = (ba.launches, up.launches, fl.launches)
     sg3_rec = phase_slice(torch, np, benchmark, all_counters, arch="stylegan3", batch=SG3_BATCH)
     # What each new path must launch: bias_act and upfirdn2d forward and
-    # backward under a StyleGAN2 G (forward only for the metrics' G), and
-    # filtered_lrelu besides under the alias-free one.
-    sg2_need = [*ba.launches, *up.launches]
+    # backward under a StyleGAN2 G (forward only for the metrics' G),
+    # filtered_lrelu besides under the alias-free one, and the second
+    # derivatives besides in the trainer (R1, path length).
+    first_order = ["bias_act_fwd", "bias_act_bwd"]
+    sg2_need = [*first_order, *up.launches]
     proj_rec = phase_projector(torch, np, benchmark, all_counters, sg2_need,
-                               [*ba.launches, *fl.launches], sg3_rec, dev)
+                               [*first_order, *fl.launches], sg3_rec, dev)
     tr_rec = phase_tr_walk(torch, np, all_counters, sg2_need, slice_rec)
     geo_rec = phase_geometric(torch, np, dev)
     metrics_rec = phase_metrics(torch, np, all_counters, ["bias_act_fwd", "upfirdn2d"],
                                 slice_rec, dev)
+    train_rec = phase_train(torch, np, all_counters, [*ba.launches, *up.launches], dev)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
-             "metrics": metrics_rec}
+             "metrics": metrics_rec, "train": train_rec}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -1032,8 +1334,10 @@ def main():
     kernels = [
         entry("bias_act_fwd", "triton", ba_src, ba_tpu, slice_rec["launches"]["bias_act_fwd"],
               bias_recs, ba_main, "fwd", None),
-        entry("bias_act_bwd", "triton", ba_src, ba_tpu, slice_rec["launches"]["bias_act_bwd"],
-              bias_recs, ba_main, "bwd", None),
+        dict(entry("bias_act_bwd", "triton", ba_src, ba_tpu, slice_rec["launches"]["bias_act_bwd"],
+                   bias_recs, ba_main, "bwd", None),
+             second_order_launches_by_path={p: r["launches"].get("bias_act_bwd2", 0)
+                                            for p, r in paths.items()}),
         entry("upfirdn2d", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
               "latentaugment_tpu/ops/upfirdn2d.py:564", slice_rec["launches"]["upfirdn2d"],
               up_recs, up_main, "fwd+bwd", up_main["variant"]),
@@ -1048,6 +1352,7 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "bias_act": bias_recs, "upfirdn2d": up_recs, "filtered_lrelu": fl_recs,
+                   "second_order": second_recs, "train": train_rec,
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
                    "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
                    "metrics": metrics_rec, "kernels": kernels}, f, indent=1)

@@ -16,7 +16,8 @@ local criterion's three taps on [-1,1] input (criteria/lpips.py). With
 loss term on the host and, at batch 1, snapshots w and the image per step.
 
 Not ported here: the device mesh and tensor parallelism (a `mesh` that is
-not None raises) and conditional networks (c_dim > 0 raises in the models).
+not None raises) and the walk's conditional branch (a generator with
+c_dim > 0 raises in make_walk_fns).
 """
 
 import json
@@ -46,6 +47,13 @@ def make_bundle(G, D=None, vgg_params=None, W_summary=None, X_cc_summaries=None,
             "fea_summaries": fea_summaries}
 
 
+def require_unconditional_walk(g_cfg):
+    if g_cfg.c_dim > 0:
+        raise NotImplementedError(
+            "the walk's conditional branch (c_dim > 0) is not ported yet; it comes "
+            "with the mesh slice (the networks and the trainer take labels already)")
+
+
 def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                   w_disc, num_epochs=10, opt_lr=0.01, crop_size=64,
                   preprocess="center_random_crop", soft_aug=False, alpha=1.0,
@@ -53,6 +61,7 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                   lpips_ref_input=False):
     """Build the walk/ganrand/z_to_w/synthesize functions. Each takes a
     bundle (make_bundle) as its first argument."""
+    require_unconditional_walk(g_cfg)
     res = g_cfg.img_resolution
     num_ws = g_cfg.num_ws
     modalities = list(range(n_modes))
@@ -350,6 +359,7 @@ class LatentAugEngine:
             self.modalities, self.exp_stylegan, self.network_pkl_stylegan)
         print(f'Loading stylegan from "{path}"...')
         g_params, g_cfg, d_params, d_cfg = checkpoint.load_stylegan(path)
+        require_unconditional_walk(g_cfg)
         # bf16 for the top blocks is a run-time choice, whatever the
         # checkpoint was trained with.
         n16 = (opt.num_fp16_res or 0) if self.res >= 64 else 0

@@ -7,8 +7,9 @@ Detectors resolve by URL basename: 'inception-2015-12-05' is the
 InceptionV3 of models/inception.py, 'vgg16' the VGG16 detector head of
 models/vgg.py. Converted weights load from this package's URL cache
 (utils/util_url.py) when present; otherwise a seeded random init keeps
-the metric self-consistent. A device mesh, a conditional generator and
-the labelled-dataset label bank belong to later slices and raise.
+the metric self-consistent. A conditional generator draws its labels
+from the training zip's labels (`dataset_kwargs` with `use_labels`) or
+uniformly. A device mesh belongs to a later slice and raises.
 """
 
 import hashlib
@@ -16,6 +17,7 @@ import os
 import pickle
 import time
 import uuid
+import zipfile
 
 import numpy as np
 import torch
@@ -380,11 +382,27 @@ def compute_feature_stats_for_aug_dataset(opts, detector_url, mode_dict=None, re
 
 
 def _dataset_label_bank(opts, c_dim, max_items=10000):
-    """Labels [N, c_dim] drawn from a labelled training zip."""
-    raise NotImplementedError(
-        "the label bank of a conditional generator reads the trainer's dataset "
-        "(models/stylegan2/dataset.py), which belongs to the trainer slice and is "
-        "not ported yet")
+    """Labels [N, c_dim] of the real dataset when opts.dataset_kwargs
+    names a labelled training zip (`use_labels`), else None (uniform
+    one-hot labels). Labels asked for and not readable raise: a uniform
+    fallback would skew a conditional FID unseen."""
+    dk = opts.dataset_kwargs
+    if not dk or not dk.get("use_labels"):
+        return None
+    from ..models.stylegan2.dataset import CustomImageFolderDataset
+
+    try:
+        ds = CustomImageFolderDataset(path=dk["path"], modalities=dk.get("modalities", []),
+                                      split=dk.get("split", "train"), use_labels=True)
+        if not ds.has_labels or ds.label_dim != c_dim:
+            raise RuntimeError(f"use_labels=True but the dataset's labels do not match G: "
+                               f"label_shape={ds.label_shape} vs c_dim={c_dim} "
+                               f"(path={dk.get('path')!r})")
+        n = min(len(ds), max_items)
+        return np.stack([ds.get_label(i) for i in range(n)]).astype(np.float32)
+    except (OSError, KeyError, ValueError, zipfile.BadZipFile) as e:
+        raise RuntimeError(f"use_labels=True but the dataset's labels could not be read "
+                           f"from {dk.get('path')!r}: {e}") from e
 
 
 def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_lo=0,
@@ -396,8 +414,8 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
     require_no_mesh(opts.mesh)
     G = opts.G
     c_dim = int(G.cfg.get("c_dim", 0) or 0)
-    if c_dim > 0:
-        _dataset_label_bank(opts, c_dim)
+    label_bank = _dataset_label_bank(opts, c_dim) if c_dim > 0 else None
+    label_rng = np.random.RandomState(int(opts.G_kwargs.get("seed", 0)))
     if batch_gen is None:
         batch_gen = min(batch_size, 16)
 
@@ -415,7 +433,14 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
     while not stats.is_full():
         with torch.no_grad():
             z = torch.randn([batch_gen, G.cfg.z_dim], generator=gen, device=device)
-            img = G(z, truncation_psi=psi, noise_mode="random", generator=gen)
+            c = None
+            if label_bank is not None:
+                idx = label_rng.randint(0, label_bank.shape[0], batch_gen)
+                c = torch.as_tensor(label_bank[idx], device=device)
+            elif c_dim > 0:
+                idx = torch.randint(0, c_dim, [batch_gen], generator=gen, device=device)
+                c = torch.nn.functional.one_hot(idx, c_dim).float()
+            img = G(z, c, truncation_psi=psi, noise_mode="random", generator=gen)
         stats.append(detector(_to_detector_batch(img.float(), mode_idx)))
         progress.update(stats.num_items)
     return stats

@@ -115,8 +115,9 @@ def load_stylegan(path):
     obj = load_pickle(path)
     if not (isinstance(obj, dict) and isinstance(obj.get("G"), dict)
             and "params" in obj["G"]):
-        raise ValueError(f"{path} is not a native checkpoint; the NVIDIA "
-                         "pickle converters are not ported")
+        raise ValueError(f"{path} is not a native checkpoint; the NVIDIA / TF "
+                         "pickle converters are not ported (they wait for such "
+                         "files in the repository)")
     g_kw = dict(obj["G"]["cfg"])
     arch = g_kw.pop("arch", "stylegan2")
     if arch not in ("stylegan2", "stylegan3"):

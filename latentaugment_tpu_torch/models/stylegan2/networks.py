@@ -6,7 +6,9 @@ joined with dots (`synthesis.b4.conv1.weight`), so a native checkpoint
 maps onto `state_dict()` key for key (see checkpoint.py). Every conv and
 FC ends in `bias_act` (kernel K1 on the card) and every FIR resample runs
 through `upfirdn2d` (kernel K2). The top `num_fp16_res` resolutions of G
-and D run in bfloat16; torgb runs in float32. Unconditional only.
+and D run in bfloat16; torgb runs in float32. A conditional pair
+(`c_dim > 0`) embeds the label in G's mapping and projects D's output on
+a mapping of the label, as the JAX package's networks do.
 """
 
 import math
@@ -67,10 +69,13 @@ def discriminator_config(c_dim=0, img_resolution=256, img_channels=2,
     return cfg
 
 
-def _require_unconditional(cfg):
-    if cfg.c_dim > 0:
-        raise NotImplementedError(
-            "conditional StyleGAN2 (c_dim > 0) is not ported yet")
+def _cmap_mapping_cfg(cfg):
+    """Config of D's label-mapping network: a mapping with z_dim 0, an
+    embed of width cmap_dim, no w_avg and no broadcast."""
+    return EasyDict(z_dim=0, c_dim=cfg.c_dim, w_dim=cfg.cmap_dim,
+                    num_mapping_layers=cfg.num_mapping_layers,
+                    mapping_lr_multiplier=cfg.mapping_lr_multiplier,
+                    embed_features=cfg.cmap_dim, num_ws=0)
 
 
 def _fp16_resolutions(cfg):
@@ -153,21 +158,33 @@ def normalize_2nd_moment(x):
 
 
 class MappingNetwork(nn.Module):
-    def __init__(self, gen, cfg):
+    """z (and a label c when c_dim > 0: a plain FC embed, 2nd-moment
+    normalized and concatenated with the normalized z) -> w."""
+
+    def __init__(self, gen, cfg, with_w_avg=True):
         super().__init__()
-        _require_unconditional(cfg)
         self.cfg = cfg
-        features = [cfg.z_dim] + [cfg.w_dim] * cfg.num_mapping_layers
+        embed_features = int(cfg.get('embed_features', 0) or 0)
+        features = [cfg.z_dim + embed_features] + [cfg.w_dim] * cfg.num_mapping_layers
         for i in range(cfg.num_mapping_layers):
             setattr(self, f'fc{i}', FullyConnectedLayer(
                 gen, features[i], features[i + 1], activation='lrelu',
                 lr_multiplier=cfg.mapping_lr_multiplier))
-        self.register_buffer('w_avg', torch.zeros([cfg.w_dim]))
+        if cfg.c_dim > 0:
+            self.embed = FullyConnectedLayer(gen, cfg.c_dim, embed_features)
+        if with_w_avg:
+            self.register_buffer('w_avg', torch.zeros([cfg.w_dim]))
 
-    def forward(self, z, truncation_psi=1.0, truncation_cutoff=None, broadcast=True):
-        """z -> w (+ truncation toward w_avg, + broadcast to num_ws)."""
+    def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
+                broadcast=True):
+        """z, c -> w (+ truncation toward w_avg, + broadcast to num_ws)."""
         cfg = self.cfg
-        x = normalize_2nd_moment(z.float())
+        x = normalize_2nd_moment(z.float()) if cfg.z_dim > 0 else None
+        if cfg.c_dim > 0:
+            if c is None:
+                raise ValueError(f"c_dim = {cfg.c_dim} needs labels c [N, {cfg.c_dim}]")
+            y = normalize_2nd_moment(self.embed(c.float()))
+            x = y if x is None else torch.cat([x, y], dim=1)
         for i in range(cfg.num_mapping_layers):
             x = getattr(self, f'fc{i}')(x)
         if truncation_psi != 1.0 and (truncation_cutoff is None or not broadcast):
@@ -201,17 +218,17 @@ class SynthesisLayer(nn.Module):
         self.register_buffer('noise_const', _randn(gen, resolution, resolution))
         self.noise_strength = nn.Parameter(torch.zeros([]))
 
-    def forward(self, x, w, f, noise_mode='const', generator=None, gain=1.0):
-        """noise_mode: 'const' | 'random' (drawn from `generator`) | 'none'."""
+    def forward(self, x, w, f, noise_mode='const', noise=None, gain=1.0):
+        """noise_mode: 'const' | 'random' (`noise`, a draw of
+        [N, 1, res, res] standard normals) | 'none'."""
         styles = self.affine(w)
-        noise = None
         if noise_mode == 'const':
             noise = self.noise_const.to(x.dtype) * self.noise_strength.to(x.dtype)
         elif noise_mode == 'random':
-            noise = torch.randn([x.shape[0], 1, self.resolution, self.resolution],
-                                generator=generator, device=x.device, dtype=x.dtype) \
-                * self.noise_strength.to(x.dtype)
-        elif noise_mode != 'none':
+            noise = noise * self.noise_strength.to(x.dtype)
+        elif noise_mode == 'none':
+            noise = None
+        else:
             raise ValueError(f"unknown noise_mode {noise_mode!r}")
         kh = self.weight.shape[-1]
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, noise=noise,
@@ -257,15 +274,17 @@ class SynthesisBlock(nn.Module):
         self.torgb = ToRGBLayer(gen, out_ch, cfg.img_channels, cfg.w_dim,
                                 conv_clamp=cfg.conv_clamp)
 
-    def forward(self, x, ws, f, dtype, noise_mode, generator):
-        """ws: this block's [N, n_conv + 1, w_dim] slice. Returns (x, rgb)."""
+    def forward(self, x, ws, f, dtype, noise_mode, noises):
+        """ws: this block's [N, n_conv + 1, w_dim] slice; noises: one
+        random-noise draw per conv ('random' mode) or None. Returns (x, rgb)."""
+        noises = noises or (None, None)
         if self.res == 4:
             x = self.const.to(dtype)[None].expand(ws.shape[0], -1, -1, -1)
             w_idx = 0
         else:
-            x = self.conv0(x.to(dtype), ws[:, 0], f, noise_mode, generator)
+            x = self.conv0(x.to(dtype), ws[:, 0], f, noise_mode, noises[0])
             w_idx = 1
-        x = self.conv1(x, ws[:, w_idx], f, noise_mode, generator)
+        x = self.conv1(x, ws[:, w_idx], f, noise_mode, noises[-1])
         y = self.torgb(x.float(), ws[:, w_idx + 1])
         return x, y
 
@@ -282,7 +301,9 @@ class SynthesisNetwork(nn.Module):
     def forward(self, ws, noise_mode='const', generator=None, remat=False):
         """ws [N, num_ws, w_dim] -> image [N, img_channels, res, res] (skip
         architecture). remat checkpoints blocks (bool = all, int = blocks
-        with res >= remat): the backward recomputes their activations."""
+        with res >= remat): the backward recomputes their activations.
+        Random noise is drawn from `generator` before each block, so that a
+        recomputed block sees the same noise."""
         cfg = self.cfg
         f = self.resample_filter
         fp16 = _fp16_resolutions(cfg)
@@ -292,7 +313,12 @@ class SynthesisNetwork(nn.Module):
             block = getattr(self, f'b{res}')
             dtype = torch.bfloat16 if res in fp16 else torch.float32
             n_conv = 1 if res == 4 else 2
-            args = (x, ws[:, w_idx:w_idx + n_conv + 1], f, dtype, noise_mode, generator)
+            noises = None
+            if noise_mode == 'random':
+                noises = tuple(torch.randn([ws.shape[0], 1, res, res], generator=generator,
+                                           device=ws.device, dtype=dtype)
+                               for _ in range(n_conv))
+            args = (x, ws[:, w_idx:w_idx + n_conv + 1], f, dtype, noise_mode, noises)
             if _want_remat(remat, res) and torch.is_grad_enabled():
                 x, y = checkpoint(block, *args, use_reentrant=False)
             else:
@@ -314,8 +340,8 @@ class Generator(nn.Module):
         self.synthesis = SynthesisNetwork(gen, cfg)
         set_impl(self, impl)
 
-    def forward(self, z, truncation_psi=1.0, noise_mode='const', generator=None):
-        ws = self.mapping(z, truncation_psi=truncation_psi)
+    def forward(self, z, c=None, truncation_psi=1.0, noise_mode='const', generator=None):
+        ws = self.mapping(z, c, truncation_psi=truncation_psi)
         return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
 
 
@@ -375,7 +401,7 @@ class DiscriminatorEpilogue(nn.Module):
         self.conv = Conv2dLayer(gen, ch4 + cfg.mbstd_num_channels, ch4, 3,
                                 activation='lrelu', conv_clamp=cfg.conv_clamp)
         self.fc = FullyConnectedLayer(gen, ch4 * 4 * 4, ch4, activation='lrelu')
-        self.out = FullyConnectedLayer(gen, ch4, 1)
+        self.out = FullyConnectedLayer(gen, ch4, cfg.cmap_dim or 1)
 
     def forward(self, x):
         x = minibatch_stddev(x, self.cfg.mbstd_group_size, self.cfg.mbstd_num_channels)
@@ -385,20 +411,23 @@ class DiscriminatorEpilogue(nn.Module):
 
 
 class Discriminator(nn.Module):
-    """img [N, C, res, res] -> logits [N, 1]."""
+    """img [N, C, res, res] (and labels c [N, c_dim] when c_dim > 0) ->
+    logits [N, 1]. A conditional D is a projection discriminator: the
+    logit is <out, mapping(c)> / sqrt(cmap_dim)."""
 
     def __init__(self, cfg, seed=1, impl='auto'):
         super().__init__()
-        _require_unconditional(cfg)
         self.cfg = cfg
         gen = torch.Generator().manual_seed(seed)
         for i, res in enumerate(cfg.block_resolutions):
             setattr(self, f'b{res}', DiscriminatorBlock(gen, cfg, res, first=(i == 0)))
         self.b4 = DiscriminatorEpilogue(gen, cfg)
+        if cfg.c_dim > 0:
+            self.mapping = MappingNetwork(gen, _cmap_mapping_cfg(cfg), with_w_avg=False)
         self.register_buffer('resample_filter', setup_filter([1, 3, 3, 1], separable=True))
         set_impl(self, impl)
 
-    def forward(self, img, remat=False):
+    def forward(self, img, c=None, remat=False):
         """remat as in SynthesisNetwork.forward."""
         cfg = self.cfg
         f = self.resample_filter
@@ -415,7 +444,11 @@ class Discriminator(nn.Module):
                 x = checkpoint(block, x, img, f, use_reentrant=False)
             else:
                 x = block(x, img, f)
-        return self.b4(x.float())
+        x = self.b4(x.float())
+        if cfg.c_dim > 0:
+            cmap = self.mapping(None, c, broadcast=False)
+            x = (x * cmap).sum(dim=1, keepdim=True) * float(1.0 / np.sqrt(cfg.cmap_dim))
+        return x
 
 
 def set_impl(module, impl):

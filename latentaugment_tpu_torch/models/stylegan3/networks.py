@@ -304,8 +304,8 @@ class Generator(nn.Module):
         self.synthesis = SynthesisNetwork(gen, cfg)
         set_impl(self, impl)
 
-    def forward(self, z, truncation_psi=1.0, noise_mode='const', generator=None,
+    def forward(self, z, c=None, truncation_psi=1.0, noise_mode='const', generator=None,
                 transform=None):
-        ws = self.mapping(z, truncation_psi=truncation_psi)
+        ws = self.mapping(z, c, truncation_psi=truncation_psi)
         return self.synthesis(ws, noise_mode=noise_mode, generator=generator,
                               transform=transform)

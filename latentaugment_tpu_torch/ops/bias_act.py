@@ -7,7 +7,9 @@ y = clamp(gain * act(x + b[c]), +-clamp), with the bias broadcast along
   * `_bias_act_ref`: plain PyTorch; autograd gives its gradient. It runs
     for CPU tensors and for `impl='ref'`.
   * kernel K1, two Triton kernels (forward and backward) behind
-    `_BiasActFunction`. It runs for every CUDA tensor unless
+    `_BiasActFunction`; the backward is a Function of its own
+    (`_BiasActGradFunction`), so the rectifiers' second derivatives launch
+    the backward kernel again. It runs for every CUDA tensor unless
     `impl='ref'`; there is no fallback on the card.
 
 K1 replaces the Pallas kernel `_bias_act_pallas`
@@ -32,7 +34,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from ..utils.util_easydict import EasyDict
 from . import _build
@@ -56,8 +57,9 @@ activation_funcs = {
 # need the pre-activation x + b.
 _ACTS_FROM_Y = ('linear', 'relu', 'lrelu')
 
-# Launches of each Triton kernel, counted where they are launched.
-launches = {'bias_act_fwd': 0, 'bias_act_bwd': 0}
+# Launches of each Triton kernel, counted where they are launched; the
+# backward kernel's launches for a second derivative count apart.
+launches = {'bias_act_fwd': 0, 'bias_act_bwd': 0, 'bias_act_bwd2': 0}
 
 
 def bias_act(x, b=None, dim=1, act='linear', alpha=None, gain=None, clamp=None,
@@ -121,21 +123,59 @@ class _BiasActFunction(torch.autograd.Function):
             ctx.save_for_backward(None, None, y)
         else:
             ctx.save_for_backward(x, b, y)
-        ctx.cfg = (dim, act, alpha, gain, clamp, b is not None)
+        ctx.cfg = (dim, act, alpha, gain, clamp)
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         x, b, y = ctx.saved_tensors
-        dim, act, alpha, gain, clamp, has_bias = ctx.cfg
-        dx = torch.empty_like(y)
-        _launch_bwd(dy.contiguous(), x, b, y, dx, dim, act, alpha, gain, clamp)
+        dim, act = ctx.cfg[:2]
+        if act in _ACTS_FROM_Y:
+            # The rectifiers' dx depends on y only through masks that are
+            # constant almost everywhere: detached, y opens no path along
+            # which a second derivative would run this backward again on
+            # zeros. (A smooth activation keeps x attached, so that its
+            # second derivative reaches _BiasActGradFunction and raises.)
+            y = y.detach()
+        dx = _BiasActGradFunction.apply(dy, x, b, y, ctx.cfg, 'bias_act_bwd')
         db = None
-        if has_bias and ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1]:
             dims = [d for d in range(dx.ndim) if d != dim]
             db = dx.float().sum(dims).to(dx.dtype)
         return dx, db, None, None, None, None, None
+
+
+class _BiasActGradFunction(torch.autograd.Function):
+    """dx = the backward kernel on dy (NVIDIA's BiasActCudaGrad design).
+
+    For linear, relu and lrelu, with or without clamp,
+    dx = dy * gain * act'(x + b) * [|y| < clamp] is linear in dy, and its
+    mask is piecewise constant in y: the derivative of dx with respect to
+    dy is the same kernel applied to the incoming gradient, and the one
+    with respect to x, b or y is zero. So second derivatives (R1,
+    path-length regularisation) launch this kernel again, counted under
+    `counter`. The smooth activations' dx is not linear in that way; their
+    second derivative on the card raises."""
+
+    @staticmethod
+    def forward(ctx, dy, x, b, y, cfg, counter):
+        dim, act, alpha, gain, clamp = cfg
+        dx = torch.empty_like(y)
+        _launch_bwd(dy.contiguous(), x, b, y, dx, dim, act, alpha, gain, clamp, counter)
+        ctx.save_for_backward(x, b, y)
+        ctx.cfg = cfg
+        return dx
+
+    @staticmethod
+    def backward(ctx, ddx):
+        act = ctx.cfg[1]
+        if act not in _ACTS_FROM_Y:
+            raise NotImplementedError(
+                f"kernel K1 has no second derivative for act={act!r} (only "
+                f"{', '.join(_ACTS_FROM_Y)}); use impl='ref'")
+        x, b, y = ctx.saved_tensors
+        ddy = _BiasActGradFunction.apply(ddx, x, b, y, ctx.cfg, 'bias_act_bwd2')
+        return ddy, None, None, None, None, None
 
 
 def _geometry(x, dim):
@@ -158,7 +198,7 @@ def _launch_fwd(x, b, y, dim, act, alpha, gain, clamp):
     launches['bias_act_fwd'] += 1
 
 
-def _launch_bwd(dy, x, b, y, dx, dim, act, alpha, gain, clamp):
+def _launch_bwd(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
     triton, _, bwd = _triton_kernels()
     n, c, inner = _geometry(y, dim)
     if n == 0:
@@ -172,7 +212,7 @@ def _launch_bwd(dy, x, b, y, dx, dim, act, alpha, gain, clamp):
             CLAMP=clamp >= 0, NEED_X=use_x,
             NEED_Y=act in ('relu', 'lrelu') or clamp >= 0,
             BLOCK=_BLOCK, num_warps=4)
-    launches['bias_act_bwd'] += 1
+    launches[counter] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,8 @@ Two implementations sit side by side:
     with nvcc at first use and called through ctypes. Forward and
     backward are the same kernels; the backward swaps up and down, flips
     the filter and transforms the padding, as the Pallas kernel's custom
-    VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614). It runs for
+    VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614), and is itself
+    differentiable, so second derivatives launch K2 too. It runs for
     every CUDA tensor unless `impl='ref'`; there is no fallback on the
     card. It takes filters of at most 4 taps per axis (StyleGAN2's
     [1, 3, 3, 1]) and raises for larger ones.
@@ -31,7 +32,6 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _build, _taps
 
@@ -296,6 +296,11 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
 
 
 class _Upfirdn2dFunction(torch.autograd.Function):
+    """K2 under autograd. The backward is this Function again (up and
+    down swapped, the filter flipped, the padding transformed), so it has
+    a backward of its own and derivatives of any order launch K2: R1 and
+    path-length regularisation differentiate a gradient."""
+
     @staticmethod
     def forward(ctx, x, f, up, down, padding, flip_filter, gain):
         y = _launch(x, f, up, down, padding, flip_filter, gain)
@@ -304,11 +309,10 @@ class _Upfirdn2dFunction(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         f, = ctx.saved_tensors
-        (upx, upy), (downx, downy), (padx0, _, pady0, _), flip_filter, gain, \
-            x_shape = ctx.cfg
+        up, down, (padx0, _, pady0, _), flip_filter, gain, x_shape = ctx.cfg
+        (upx, upy), (downx, downy) = up, down
         fw, fh = _get_filter_size(f)
         _, _, ih, iw = x_shape
         _, _, oh, ow = dy.shape
@@ -316,7 +320,7 @@ class _Upfirdn2dFunction(torch.autograd.Function):
              iw * upx - ow * downx + padx0 - upx + 1,
              fh - pady0 - 1,
              ih * upy - oh * downy + pady0 - upy + 1)
-        dx = _launch(dy, f, (downx, downy), (upx, upy), p, not flip_filter, gain)
+        dx = _Upfirdn2dFunction.apply(dy, f, down, up, p, not flip_filter, gain)
         if dx.shape != x_shape:
             raise RuntimeError(f"upfirdn2d backward shape {tuple(dx.shape)} "
                                f"!= input shape {tuple(x_shape)}")

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from latentaugment_tpu_torch.ops import _build
+from latentaugment_tpu_torch.ops import bias_act as ba
 from latentaugment_tpu_torch.ops import filtered_lrelu as fl
 from latentaugment_tpu_torch.ops import upfirdn2d as up
 from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
@@ -226,3 +227,112 @@ def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
     assert launch2(smem=plan2["smem"] - 4) == 1
     assert launch2(tow=plan2["tow"] + 2) == 1
     assert launch2(up_=2, down=2) == 1
+
+
+def _second_order(fn, x, dy1, dy2):
+    """g = d<fn(x), dy1>/dx with its graph, then d<g, dy2>/d(x, dy1):
+    (y, g, d/dx, d/d dy1), a missing derivative as zeros."""
+    x = x.detach().requires_grad_(True)
+    dy1 = dy1.detach().requires_grad_(True)
+    y = fn(x)
+    g, = torch.autograd.grad(y, x, dy1, create_graph=True)
+    gx, gdy = torch.autograd.grad(g, (x, dy1), dy2, allow_unused=True)
+    gx = torch.zeros_like(x) if gx is None else gx
+    return y.detach(), g.detach(), gx, gdy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["G blur", "D blur", "D skip", "upsample2d"])
+def test_upfirdn2d_second_derivative_sources_match_plain(emulated, name, dtype):
+    """R1 and path length differentiate K2's backward: it is K2 again,
+    through the same sources (forward, backward, and the backward's
+    backward in the forward's variant), against the plain version."""
+    kw, fwd_variant, bwd_variant = UPFIRDN_CASES[name]
+    f = up.setup_filter([1, 3, 3, 1], separable=True)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn([2, 2, 17, 13], generator=g).to(dtype)
+    args = (up._parse_scaling(kw["up"]), up._parse_scaling(kw["down"]),
+            up._parse_padding(kw["padding"]), False, float(kw["gain"]))
+    y_shape = up._upfirdn2d_ref(x, f, kw["up"], kw["down"], kw["padding"], False,
+                                kw["gain"]).shape
+    dy1 = torch.randn(y_shape, generator=g).to(dtype)
+    dy2 = torch.randn(x.shape, generator=g).to(dtype)
+    ref = _second_order(lambda x: up._upfirdn2d_ref(x, f, kw["up"], kw["down"], kw["padding"],
+                                                    False, kw["gain"]), x, dy1, dy2)
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    got = _second_order(lambda x: up._Upfirdn2dFunction.apply(x, f, *args), x, dy1, dy2)
+    nv[fwd_variant] += 2
+    nv[bwd_variant] += 1
+    assert up.launches["upfirdn2d"] == n + 3 and up.variant_launches == nv
+    for k, r in zip(got[:2] + got[3:], ref[:2] + ref[3:]):
+        assert k.shape == r.shape and k.dtype == dtype
+        assert _rel_err(k, r) <= TOL[dtype]
+    assert not got[2].any() and not ref[2].any()  # K2 is linear: no d/dx
+
+
+# K1 is Triton, which has no host build: its two launchers are replaced by
+# torch versions of the kernels' formulas, which holds the autograd wiring
+# of `_BiasActFunction` / `_BiasActGradFunction` (which kernel each
+# derivative launches, and under which counter) on CPU tensors.
+
+def _bias_act_fwd_stub(x, b, y, dim, act, alpha, gain, clamp):
+    y.copy_(ba._bias_act_ref(x.float(), None if b is None else b.float(), dim, act, alpha,
+                             gain, clamp))
+    ba.launches["bias_act_fwd"] += 1
+
+
+def _bias_act_bwd_stub(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
+    g = dy.float() * gain
+    yf = y.float()
+    if act == "relu":
+        g = torch.where(yf * gain > 0, g, 0.0)
+    elif act == "lrelu":
+        g = torch.where(yf * gain > 0, g, g * alpha)
+    elif act != "linear":
+        raise NotImplementedError(act)
+    if clamp >= 0:
+        g = torch.where(yf.abs() < clamp, g, 0.0)
+    dx.copy_(g)
+    ba.launches[counter] += 1
+
+
+@pytest.mark.parametrize("clamp", [None, 0.5], ids=["noclamp", "clamp"])
+@pytest.mark.parametrize("act", ["linear", "relu", "lrelu"])
+def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, act, clamp):
+    monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
+    monkeypatch.setattr(ba, "_launch_bwd", _bias_act_bwd_stub)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn([3, 5, 4, 6], generator=g)
+    b = torch.randn([5], generator=g)
+    dy1, dy2 = torch.randn(x.shape, generator=g), torch.randn(x.shape, generator=g)
+    spec = ba.activation_funcs[act]
+    cfg = (1, act, spec.def_alpha, spec.def_gain, -1.0 if clamp is None else clamp)
+    ref = _second_order(lambda x: ba._bias_act_ref(x, b, 1, *cfg[1:]), x, dy1, dy2)
+    n = dict(ba.launches)
+    got = _second_order(lambda x: ba._BiasActFunction.apply(x, b, *cfg), x, dy1, dy2)
+    assert ba.launches == {"bias_act_fwd": n["bias_act_fwd"] + 1,
+                           "bias_act_bwd": n["bias_act_bwd"] + 1,
+                           "bias_act_bwd2": n["bias_act_bwd2"] + 1}
+    for k, r in zip(got, ref):
+        torch.testing.assert_close(k, r, rtol=1e-6, atol=1e-6)
+    assert not got[2].any()  # d/dx of dx is zero for the rectifiers
+    # The bias gradient is a torch reduction of dx: its own derivative
+    # with respect to dy reaches the backward kernel again.
+    xg, bg, dyg = (t.clone().requires_grad_(True) for t in (x, b, dy1))
+    y = ba._BiasActFunction.apply(xg, bg, *cfg)
+    _, gb = torch.autograd.grad(y, (xg, bg), dyg, create_graph=True)
+    gdy, = torch.autograd.grad(gb.square().sum(), dyg)
+    yr = ba._bias_act_ref(xg, bg, 1, *cfg[1:])
+    _, gbr = torch.autograd.grad(yr, (xg, bg), dyg, create_graph=True)
+    gdyr, = torch.autograd.grad(gbr.square().sum(), dyg)
+    torch.testing.assert_close(gdy, gdyr, rtol=1e-6, atol=1e-6)
+
+
+def test_bias_act_second_derivative_of_a_smooth_activation_raises(monkeypatch):
+    monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
+    monkeypatch.setattr(ba, "_launch_bwd", lambda *a, **k: None)
+    x = torch.randn([2, 3, 4, 4], requires_grad=True)
+    y = ba._BiasActFunction.apply(x, None, 1, "tanh", 0.0, 1.0, -1.0)
+    g, = torch.autograd.grad(y.sum(), x, create_graph=True)
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        torch.autograd.grad(g.sum(), x)

@@ -187,6 +187,79 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     assert up.launches["upfirdn2d"] == n
 
 
+def _second_order(fn, x, dy1, dy2, impl):
+    """R1's and path length's pattern: g = d<fn(x), dy1>/dx with its graph,
+    then d<g, dy2>/d(x, dy1) (a missing derivative as zeros)."""
+    x = x.detach().requires_grad_(True)
+    dy1 = dy1.detach().requires_grad_(True)
+    g, = torch.autograd.grad(fn(x, impl), x, dy1, create_graph=True)
+    gx, gdy = torch.autograd.grad(g, (x, dy1), dy2, allow_unused=True)
+    return g, torch.zeros_like(x) if gx is None else gx, gdy
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("act, clamp, dtype", [
+    ("lrelu", 256.0, F32), ("lrelu", None, F32), ("lrelu", None, BF16), ("relu", 0.5, F32),
+    ("linear", None, F32), ("linear", None, BF16)])
+def test_bias_act_second_derivative_matches_plain(cuda, act, clamp, dtype):
+    """The rectifiers' dx is linear in dy: its derivative launches the
+    backward kernel again, counted as bias_act_bwd2 (the clamp engaged in
+    float32 only, as above)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, dy1, dy2 = (torch.randn([4, 24, 9, 7], generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+    x = x * (300.0 if clamp == 256.0 else 1.0)
+    b = torch.randn([24], generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return ba.bias_act(x, b, act=act, clamp=clamp, impl=impl)
+
+    n = dict(ba.launches)
+    got = _second_order(fn, x, dy1, dy2, "auto")
+    assert ba.launches == {"bias_act_fwd": n["bias_act_fwd"] + 1,
+                           "bias_act_bwd": n["bias_act_bwd"] + 1,
+                           "bias_act_bwd2": n["bias_act_bwd2"] + 1}
+    want = _second_order(fn, x, dy1, dy2, "ref")
+    for k, r in zip(got, want):
+        assert k.dtype == dtype and _rel_err(k, r) <= TOL_GRAD[dtype]
+    assert not got[1].any()
+
+
+def test_bias_act_second_derivative_of_a_smooth_activation_raises(cuda):
+    x = torch.randn([2, 3, 4, 4], device=cuda, requires_grad=True)
+    y = ba.bias_act(x, None, act="swish")
+    g, = torch.autograd.grad(y.sum(), x, create_graph=True)
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        torch.autograd.grad(g.sum(), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(UPFIRDN_VARIANT_CASES))
+def test_upfirdn2d_second_derivative_at_walk_shapes(cuda, name, dtype):
+    """K2's backward is K2 again: the second derivative launches the
+    forward's variant once more, never `generic`."""
+    shape, kw, fwd_variant, bwd_variant = UPFIRDN_VARIANT_CASES[name]
+    f = up.setup_filter([1, 3, 3, 1], device=cuda, separable=True)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return up.upfirdn2d(x, f, impl=impl, **kw)
+
+    dy1 = torch.randn(fn(x, "ref").shape, generator=g, device=cuda).to(dtype)
+    dy2 = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n = dict(up.variant_launches)
+    got = _second_order(fn, x, dy1, dy2, "auto")
+    n[fwd_variant] += 2
+    n[bwd_variant] += 1
+    assert up.variant_launches == n
+    want = _second_order(fn, x, dy1, dy2, "ref")
+    for k, r in zip(got, want):
+        assert k.shape == r.shape and _rel_err(k, r) <= TOL_GRAD[dtype]
+
+
 # filtered_lrelu (K3): the kinds of layer of the StyleGAN3-T 256 walk, at a
 # few channels: (x shape, up taps, down taps, up, down, padding, gain, slope).
 FLRELU_CASES = {

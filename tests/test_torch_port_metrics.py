@@ -403,11 +403,15 @@ def test_live_generator_metrics_and_what_raises(detectors, metric_ws):
 
     with pytest.raises(NotImplementedError, match="DDP slice"):
         mu_t.MetricOptions(device="cpu", mesh=object())
+    # A conditional generator's labels come from the dataset when asked
+    # for; a zip without labels then raises instead of drawing uniformly.
     G.cfg.c_dim = 3
-    with pytest.raises(NotImplementedError, match="trainer slice"):
+    opts.dataset_kwargs.use_labels = True
+    with pytest.raises(RuntimeError, match="labels"):
         mu_t.compute_feature_stats_for_generator(opts, pr_t.DETECTOR_URL, capture_all=True,
                                                  max_items=2)
     G.cfg.c_dim = 0
+    del opts.dataset_kwargs["use_labels"]
     with pytest.raises(NotImplementedError, match="Unknown detector"):
         mu_t.get_feature_detector("https://example.com/resnet50.pkl", "cpu")
     if not torch.cuda.is_available():

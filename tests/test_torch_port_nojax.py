@@ -1,7 +1,7 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
-every module of the port and its projector script, and running its
-policies, its projector command line, an alias-free generator and a
-metric on the CPU loads no `jax` module, no `click` and nothing of the JAX
+every module of the port and its projector and trainer scripts, and
+running its policies, its projector and trainer command lines, an
+alias-free generator and a metric on the CPU loads no `jax` module, no `click` and nothing of the JAX
 package `latentaugment_tpu`. No source file of the port, nor
 `chip_smoke.py`, nor the port's scripts, names such an import. And
 `--device cuda` without CUDA raises instead of running on the CPU."""
@@ -27,7 +27,8 @@ for name in ("augments.criteria.lpips", "augments.criteria.nst", "augments.geome
              "data.write_tozip", "metrics.frechet_inception_distance",
              "metrics.metric_main_mi_multimodal", "metrics.metric_utils",
              "metrics.precision_recall", "models.inception", "models.lpips_backbones",
-             "models.stylegan2.projector", "utils.util_url"):
+             "models.stylegan2.projector", "models.stylegan2.train", "models.stylegan2.ada",
+             "models.stylegan2.dataset", "utils.util_url"):
     assert "latentaugment_tpu_torch." + name in sys.modules, name
 from latentaugment_tpu_torch import augments, benchmark, data, models, options, utils
 from latentaugment_tpu_torch.models.stylegan3 import filters, networks as sg3
@@ -69,6 +70,11 @@ project_main(["--checkpoint", argv[argv.index("--model_dir") + 1], "--data_zip",
               "--batch_size", "4", "--w_avg_samples", "16", "--outdir",
               os.path.join(root, "proj"), "--dest_zip", inv, "--device", "cpu"])
 assert os.path.getsize(inv) > 0
+from scripts.torch_train_sg2 import main as train_main
+run = os.path.join(root, "train")
+train_main(["--synthetic", "--device", "cpu", "--batch", "4", "--kimg", "0.004", "--snap",
+            "0.004", "--outdir", run, "--aug", "ada"])
+assert any(f.startswith("network-snapshot-") for f in os.listdir(run))
 from latentaugment_tpu_torch.metrics import precision_recall
 rng = np.random.RandomState(0)
 p, r = precision_recall.knn_precision_recall(rng.randn(20, 8), rng.randn(20, 8), device="cpu")
@@ -103,7 +109,8 @@ def _port_sources():
 def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
     files = _port_sources()
     names = {os.path.relpath(f, REPO) for f in files}
-    assert {"chip_smoke.py", "scripts/torch_project_dataset.py",
+    assert {"chip_smoke.py", "scripts/torch_project_dataset.py", "scripts/torch_train_sg2.py",
+            "latentaugment_tpu_torch/models/stylegan2/train.py",
             "latentaugment_tpu_torch/metrics/metric_utils.py",
             "latentaugment_tpu_torch/augments/geometric_aug.py"} <= names
     banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
@@ -135,6 +142,11 @@ def test_device_cuda_without_cuda_raises(tmp_path):
     assert opt.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_augment(opt)
+    from latentaugment_tpu_torch.models.stylegan2 import networks, train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.make_train_fns(networks.generator_config(img_resolution=16),
+                             networks.discriminator_config(img_resolution=16),
+                             train.train_config())
     # Nothing was built on the CPU in its place: no manifold caches.
     assert not os.path.exists(os.path.join(str(tmp_path), "interim", "PolicyBench",
                                            "cache_dir"))
