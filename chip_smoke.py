@@ -68,6 +68,32 @@ line.
      steps (second-order ones included, which must be > 0); each phase
      once alone (CUDA events), then under torch.profiler (device time by
      kind of kernel); the final snapshot loads back.
+ 10. Real-format checkpoints at phase 3's widths, from the NVIDIA-faithful
+     torch G and D of tests/reference_oracles.py (seeded, NVIDIA's init,
+     w_avg and noise strengths nonzero): (a) written as an NVIDIA
+     persistence pickle and converted (host seconds), the port's G (psi 1
+     and 0.7, const noise) and D in float32 against those modules on the
+     card (CONVERT_TOL of max |oracle|); the policy for 2 batches over the
+     pickle, its launches per batch equal to phase 3's, and its first batch
+     against the walk from the native file of the converted modules, run
+     twice: step-0 losses (STEP0_TOL, beside the native walk's own rerun:
+     cuDNN's algorithms differ between engines), walked w under the default
+     algorithms beside that rerun; then with deterministic cuDNN, where the
+     native walk run again and the pickle's walk must both be bit-equal to
+     the native walk in bf16; (b) a conditional pair (c_dim 3):
+     `forward(w, c=...)` at batch 32 in float32 with the kernels and with
+     --impl ref, the launches read right after the kernels' walk (the
+     gradient at w within TOL_GRAD_WALK of its max, every step's losses
+     within 1e-3, walked w within W_ATOL on all but W_SLIVER of its
+     coordinates), beside the plain walk from w moved by one float32 step
+     (the plain path's own spread), other labels moving w, each walk at
+     the same crop, `forward_ganrand(z, c=...)`; (c) phase 4's SG3-T
+     checkpoint re-written as an NVIDIA-style payload (`class_name`
+     ...networks_stylegan3.Generator): every tensor
+     bit-equal to the native one's, and one module's image under both
+     (CONVERT_TOL, bit-equality recorded), through K3; (d) a TorchScript
+     VGG16 with LPIPS heads through `vgg.convert_torchscript`: the taps on
+     the card against the script module's (CONVERT_TOL).
 
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
@@ -106,6 +132,18 @@ SG3_BATCH = 16
 PROJ_BATCH, PROJ_STEPS = 16, 20          # the projector on StyleGAN2
 PROJ_SG3_BATCH, PROJ_SG3_STEPS = 8, 5    # and on the SG3-T checkpoint
 N_GEN = 512                              # generated images of the metrics
+# Phase 10: a converted network (float32) against the module it came from,
+# max err / max |reference|; the walked w (a tenth of one Adam step).
+CONVERT_TOL, W_ATOL = 1e-4, 1e-3
+STEP0_TOL = 1e-3  # a walk's step-0 losses from one engine to the next (bf16)
+# The conditional walk at batch 32 in float32, kernels against plain. Four
+# readings on an H100: the gradient at w 1.31e-3 to 2.50e-3 of its max
+# (in the same runs the plain gradient alone moved as much, 1.31e-3 and
+# 2.50e-3, when w moved by one float32 step), w past W_ATOL on 0.54% to
+# 0.80% of its coordinates. The bounds are 4x and 2.5x the largest reading.
+TOL_GRAD_WALK = 1e-2
+W_SLIVER = 2e-2
+WIDTHS = dict(channel_base=32768, channel_max=512)  # the operating point's G and D
 # Launch counts by kernel variant, by kernel name; main() fills it.
 VARIANT_COUNTERS = {}
 
@@ -1251,6 +1289,365 @@ def phase_train(torch, np, counters, need, dev):
     return rec
 
 
+def _nvidia_pair(torch, oracle, c_dim, seed):
+    """The NVIDIA-faithful torch G and D of tests/reference_oracles.py at the
+    operating point's widths (8 mapping layers), seeded, in NVIDIA's init
+    (mapping weights randn / lr multiplier), with w_avg and the noise
+    strengths nonzero."""
+    torch.manual_seed(seed)
+    g = oracle.GeneratorT(z_dim=512, c_dim=c_dim, w_dim=512, img_resolution=RES, img_channels=2,
+                          mapping_kwargs={"num_layers": 8},
+                          synthesis_kwargs={**WIDTHS, "conv_clamp": 256})
+    d = oracle.DiscriminatorT(c_dim=c_dim, img_resolution=RES, img_channels=2, conv_clamp=256,
+                              mapping_kwargs={"num_layers": 8}, **WIDTHS)
+    with torch.no_grad():
+        for net in (g, d):
+            for m in net.modules():
+                if isinstance(m, oracle.FullyConnectedT):
+                    m.weight.div_(m.lr_multiplier)
+        g.mapping.w_avg.copy_(torch.randn_like(g.mapping.w_avg) * 0.1)
+        for m in g.modules():
+            if isinstance(m, oracle.SynthesisLayerT):
+                m.noise_strength.fill_(0.37)
+    return g.eval().requires_grad_(False), d.eval().requires_grad_(False)
+
+
+def _ts_vgg16(torch, vgg):
+    """A TorchScript-able VGG16 shaped like NVIDIA's vgg16.pt: the 13 convs
+    in definition order and five 1x1 LPIPS `lin` convs."""
+
+    class TSVGG16(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            layers, c_in = [], 3
+            for item in vgg.VGG16_PLAN:
+                if item == "M":
+                    layers.append(torch.nn.MaxPool2d(2))
+                    continue
+                layers += [torch.nn.Conv2d(c_in, item[1], 3, padding=1), torch.nn.ReLU()]
+                c_in = item[1]
+            self.layers = torch.nn.Sequential(*layers)
+            for i, tap in enumerate(vgg.LPIPS_TAPS):
+                setattr(self, f"lin{i}",
+                        torch.nn.Conv2d(vgg.LPIPS_CHANNELS[tap], 1, 1, bias=False))
+
+        def forward(self, x):
+            return self.layers(x)
+
+    return TSVGG16()
+
+
+def phase_convert(torch, np, counters, slice_rec, sg3_rec, dev):
+    """Real-format checkpoints at the operating point's widths: (a) an NVIDIA
+    StyleGAN2 pickle held against its torch modules and walked by the
+    policy, against the native file of the same weights; (b) a conditional
+    pickle walked with labels, kernels against plain; (c) phase 4's SG3-T
+    checkpoint as an NVIDIA-style payload; (d) a TorchScript VGG16."""
+    import pickle
+
+    import reference_oracles as oracle
+
+    from latentaugment_tpu_torch.augments import engine as engine_mod
+    from latentaugment_tpu_torch.models import networks_for, vgg
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint, networks
+    from latentaugment_tpu_torch.options import AugOptions
+
+    log("phase 10: real-format checkpoints (NVIDIA / TorchScript stand-ins) at full width")
+    root = os.path.join(REPO, "build", "chip_smoke_convert")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    argv = slice_rec["argv"]
+    rec = {}
+
+    # (a) An NVIDIA StyleGAN2 pickle.
+    g_o, d_o = _nvidia_pair(torch, oracle, 0, seed=10)
+    pkl = os.path.join(root, "network-snapshot-nvidia.pkl")
+    with open(pkl, "wb") as f:
+        f.write(oracle.persistence_pickle_bytes({"G_ema": g_o, "D": d_o}))
+    t0 = time.time()
+    g_params, g_cfg, d_params, d_cfg = checkpoint.load_stylegan(pkl, img_resolution=RES,
+                                                                img_channels=2)
+    load_s = time.time() - t0
+    if tuple(np.shape(g_params["synthesis"]["resample_filter"])) != (4,) or \
+            tuple(np.shape(d_params["resample_filter"])) != (4,):
+        raise AssertionError("the converted resample filters are not the 1-D 4-tap filter")
+    G = networks.Generator(g_cfg)  # float32: num_fp16_res 0
+    G.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    D = networks.Discriminator(d_cfg)
+    D.load_state_dict(checkpoint.params_to_state_dict(d_params))
+    G, D, g_od, d_od = (m.to(dev).eval().requires_grad_(False) for m in (G, D, g_o, d_o))
+    gen = torch.Generator(device=dev).manual_seed(41)
+    z = torch.randn([8, 512], generator=gen, device=dev)
+    errs = {}
+    # `with dev`: the oracle makes its identity filter with torch.ones, on
+    # the default device.
+    with torch.no_grad(), dev:
+        for psi in (1.0, 0.7):
+            errs[f"G psi {psi}"] = rel_close(G(z, truncation_psi=psi, noise_mode="const"),
+                                             g_od(z, truncation_psi=psi, noise_mode="const"),
+                                             CONVERT_TOL, f"converted G, psi {psi}")
+        img = torch.rand([8, 2, RES, RES], generator=gen, device=dev) * 2 - 1
+        errs["D logits"] = rel_close(D(img), d_od(img), CONVERT_TOL, "converted D")
+    log(f"  NVIDIA pickle: converted in {load_s:.2f} s on the host; port (kernels, float32, TF32 "
+        f"off) vs the oracle modules on the card, max err / max |oracle|: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {CONVERT_TOL})")
+    native = os.path.join(root, "native-of-nvidia.pkl")
+    checkpoint.save_checkpoint(native, G.cpu(), D.cpu())
+    del G, D, g_od, d_od, g_o, d_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n = 2
+    argv_pkl = argv + ["--model_dir", root, "--network_pkl_stylegan", os.path.basename(pkl)]
+    batches, launches, setup_s, peak = run_policy(torch, argv_pkl, counters, n_batches=n)
+    check_batches(torch, np, batches, BATCH, "walk from the NVIDIA pickle", n_batches=n)
+    launches, variants = read_counters(counters, "walk from the NVIDIA pickle",
+                                       ["bias_act_fwd", "bias_act_bwd", "upfirdn2d"])
+    # The same walk per batch as phase 3's (3 batches there, n here).
+    want = {k: slice_rec["launches"][k] for k in launches if k in slice_rec["launches"]}
+    want_v = slice_rec["variant_launches"]["upfirdn2d"]
+    if any(launches[k] * N_BATCHES != want[k] * n for k in want) or \
+            any(variants["upfirdn2d"][k] * N_BATCHES != want_v[k] * n for k in want_v):
+        raise AssertionError(f"walk from the NVIDIA pickle launched {launches} {variants} over "
+                             f"{n} batches; phase 3: {want} {want_v} over {N_BATCHES}")
+    # The first batch again from the native file of the converted modules,
+    # twice. Under cuDNN's default algorithms, picked per engine (the free
+    # workspace counts), no two bf16 walks are bit-equal, so there the
+    # step-0 losses are held to STEP0_TOL beside the native walk's own
+    # rerun and the walked w is recorded beside that rerun (Adam turns any
+    # difference of a gradient near 0 into whole steps of lr). With
+    # deterministic cuDNN (benchmark off) the bf16 walk must be
+    # reproducible, and the pickle's walk must equal the native file's bit
+    # for bit.
+    argv_nat = argv + ["--model_dir", native]
+    nat, nat2 = (run_policy(torch, argv_nat, counters, n_batches=1)[0][0] for _ in range(2))
+
+    def step0_rel(got, want):
+        return max(abs(got["traces"][k][0].item() - v[0].item()) / abs(v[0].item())
+                   for k, v in want["traces"].items())
+
+    step0, step0_rerun = step0_rel(batches[0], nat), step0_rel(nat2, nat)
+    if not step0 <= STEP0_TOL:
+        raise AssertionError(f"step-0 losses, NVIDIA pickle vs its native file: rel diff {step0} "
+                             f"(the native walk against itself: {step0_rerun})")
+    w_default = float(np.abs(batches[0]["w_out"] - nat["w_out"]).max())
+    w_rerun = float(np.abs(nat2["w_out"] - nat["w_out"]).max())
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        w_det = {name: run_policy(torch, a, counters, n_batches=1)[0][0]["w_out"]
+                 for name, a in (("pickle", argv_pkl), ("native", argv_nat),
+                                 ("native again", argv_nat))}
+    finally:
+        cudnn.deterministic = False
+    w_det_rerun = float(np.abs(w_det["native again"] - w_det["native"]).max())
+    w_diff = float(np.abs(w_det["pickle"] - w_det["native"]).max())
+    if not (w_det_rerun == 0 and w_diff == 0):
+        raise AssertionError(f"bf16 walks with deterministic cuDNN: the native walk against "
+                             f"itself run again differs by {w_det_rerun}, the NVIDIA pickle's "
+                             f"against the native file's by {w_diff}")
+    sps = BATCH / batches[1]["wall"]
+    log(f"  policy over the NVIDIA pickle: {sps:.3f} samples/s (second batch; phase 3 "
+        f"{slice_rec['kernel_samples_per_s']:.3f} over batches 2-3), set-up {setup_s:.1f} s, "
+        f"peak memory {peak / 2**30:.2f} GiB, launches per batch equal phase 3's {launches}, "
+        f"by variant {variants}; against the walk from the native file: step-0 losses rel "
+        f"diff {step0:.2e} (the native walk against itself run again {step0_rerun:.2e}, bound "
+        f"{STEP0_TOL}); walked w (bf16 top blocks, default cuDNN) max |diff| {w_default:.2e}, the "
+        f"native walk against itself run again {w_rerun:.2e}; bf16 with deterministic cuDNN: "
+        f"the native walk run again and the pickle's walk both bit-equal to the native walk")
+    rec["nvidia_pickle"] = dict(
+        load_seconds=load_s, rel_err=errs, bound=CONVERT_TOL, launches=launches,
+        variant_launches=variants, samples_per_s=sps, batch_wall_s=[b["wall"] for b in batches],
+        setup_s=setup_s, peak_mem_bytes=peak, step0_rel_diff_vs_native=step0,
+        step0_rel_diff_native_rerun=step0_rerun,
+        w_vs_native_default_cudnn=w_default, w_native_rerun_default_cudnn=w_rerun,
+        w_vs_native_bf16_deterministic=w_diff, w_native_rerun_bf16_deterministic=w_det_rerun)
+    del batches, nat, nat2, w_det
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) A conditional pickle, walked with labels: kernels against plain,
+    # in float32 (TF32 off) so that the walked w compares to 1e-3.
+    g_o, d_o = _nvidia_pair(torch, oracle, 3, seed=11)
+    cond = os.path.join(root, "network-snapshot-conditional.pkl")
+    with open(cond, "wb") as f:
+        f.write(oracle.persistence_pickle_bytes({"G_ema": g_o, "D": d_o}))
+    del g_o, d_o
+    rng = np.random.RandomState(12)
+    w = rng.randn(BATCH, 1, 512).astype(np.float32) * 0.1
+    zc = rng.randn(BATCH, 512).astype(np.float32)
+    c_a = np.eye(3, dtype=np.float32)[np.arange(BATCH) % 3]
+    c_b = np.roll(c_a, 1, axis=1)
+    # The same w moved by one float32 rounding step (the next float up):
+    # the plain path's own spread under a rounding-size change of its input.
+    w_ulp = np.nextafter(w, np.float32(np.inf))
+
+    def walk(eng, w_in, labels=c_a):
+        # Each walk draws its crop from the engine's crop stream: rewind it,
+        # so that every walk here sees the same crop.
+        eng._crop_rng.setstate(crop_state)
+        t0 = time.time()
+        _, ws = eng.forward(w_in, c=labels)
+        torch.cuda.synchronize()
+        return (ws.cpu().numpy()[:, 0], time.time() - t0,
+                {k: v.float().cpu() for k, v in eng.last_traces.items()})
+
+    def grad_at(eng, w_in):
+        """d loss / d w at w_in, one crop: the labels' gradient path alone."""
+        w_leaf = torch.as_tensor(w_in, device=dev).requires_grad_(True)
+        total, _ = eng._fns.loss_fn(eng._bundle, w_leaf, (8, 8), torch.as_tensor(c_a, device=dev))
+        return torch.autograd.grad(total, w_leaf)[0].cpu()
+
+    walked, grads = {}, {}
+    for impl in ("auto", "ref"):
+        opt = AugOptions().parse(argv=argv + ["--model_dir", root, "--network_pkl_stylegan",
+                                              os.path.basename(cond), "--num_fp16_res", "0",
+                                              "--impl", impl], install_logger=False)
+        eng = engine_mod.define_latentaugment("latent_aug", "train", opt, root, dev)
+        crop_state = eng._crop_rng.getstate()
+        reset_counters(counters)
+        walked[impl] = walk(eng, w)
+        if impl == "auto":
+            cond_launches, cond_variants = read_counters(
+                counters, "conditional walk", ["bias_act_fwd", "bias_act_bwd", "upfirdn2d"])
+        elif any(c for cs in counters for c in cs.values()):
+            raise AssertionError(f"--impl ref launched kernels: {[dict(c) for c in counters]}")
+        grads[impl] = grad_at(eng, w)
+        if impl == "auto":
+            moved = float(np.abs(walk(eng, w, c_b)[0] - walked["auto"][0]).max())
+            img_g, _ = eng.forward_ganrand(zc, c=c_a)
+            if not (moved > 0 and torch.isfinite(img_g).all()):
+                raise AssertionError(f"conditional walk: other labels moved w by {moved}; "
+                                     f"ganrand finite {bool(torch.isfinite(img_g).all())}")
+        else:
+            walked["ref_ulp"], grads["ref_ulp"] = walk(eng, w_ulp), grad_at(eng, w_ulp)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Adam normalises each coordinate's step, so where a gradient passes
+    # near 0 a rounding-size difference may step it a whole lr the other
+    # way, and a lrelu or clamp kink within rounding of an input flips that
+    # element's slope in the gradient. The plain walk from w_ulp shows how
+    # far the plain path alone spreads so; kernels against plain are held
+    # to TOL_GRAD_WALK in the gradient at w, 1e-3 in every step's losses,
+    # and W_ATOL in w on all but W_SLIVER of its coordinates.
+    def spread(a, b):
+        d = np.abs(walked[a][0] - walked[b][0])
+        trace = max(((walked[a][2][k] - v).abs() / v.abs()).max().item()
+                    for k, v in walked[b][2].items())
+        return dict(w_max_abs_diff=float(d.max()), w_share_above_atol=float((d > W_ATOL).mean()),
+                    w_p999=float(np.quantile(d, 0.999)), loss_trace_rel=trace)
+
+    kvp, ulp = spread("auto", "ref"), spread("ref_ulp", "ref")
+    ulp["grad_rel_err"] = rel_close(grads["ref_ulp"], grads["ref"], math.inf,
+                                    "plain gradient at w_ulp vs at w")
+    kvp["grad_rel_err"] = rel_close(grads["auto"], grads["ref"], TOL_GRAD_WALK,
+                                    "conditional walk's gradient at w, kernels vs plain")
+    if not (kvp["w_share_above_atol"] <= W_SLIVER and kvp["loss_trace_rel"] <= 1e-3):
+        raise AssertionError(f"conditional walk, kernels vs plain: {kvp} (w share bound "
+                             f"{W_SLIVER}, losses 1e-3); the plain walk from w_ulp: {ulp}")
+
+    def show(s):
+        return (f"gradient at w rel err {s['grad_rel_err']:.2e}; losses of every step rel "
+                f"{s['loss_trace_rel']:.2e}; walked w max |diff| {s['w_max_abs_diff']:.2e}, share "
+                f"above {W_ATOL} {s['w_share_above_atol']:.2e}, 99.9th percentile "
+                f"{s['w_p999']:.2e}")
+
+    log(f"  conditional pickle (c_dim 3), float32, batch {BATCH}, kernels vs plain: {show(kvp)} "
+        f"(bounds: gradient {TOL_GRAD_WALK}, share {W_SLIVER}); the plain walk from w moved by "
+        f"one float32 step against the plain walk from w: {show(ulp)}; walk "
+        f"{walked['auto'][1]:.2f} s (plain {walked['ref'][1]:.2f} s, first batch, warm-up "
+        f"included); other labels move w by {moved:.2e}; forward_ganrand(z, c) finite; "
+        f"launches {cond_launches}")
+    rec["conditional"] = dict(kernels_vs_plain=kvp, plain_ulp_vs_plain=ulp, w_atol=W_ATOL,
+                              w_sliver=W_SLIVER, grad_bound=TOL_GRAD_WALK,
+                              seconds={k: walked[k][1] for k in ("auto", "ref")},
+                              labels_move_w_by=moved, launches=cond_launches,
+                              variant_launches=cond_variants)
+
+    # (c) Phase 4's SG3-T checkpoint as an NVIDIA-style payload.
+    sg3_opt = dict(zip(sg3_rec["argv"][::2], sg3_rec["argv"][1::2]))
+    p3, cfg3, _, _ = checkpoint.load_stylegan(sg3_opt["--model_dir"])
+    keys = ("z_dim", "c_dim", "w_dim", "img_resolution", "img_channels", "channel_base",
+            "channel_max", "num_layers", "num_critical", "first_cutoff", "first_stopband",
+            "last_stopband_rel", "margin_size", "output_scale", "conv_clamp", "conv_kernel",
+            "filter_size", "lrelu_upsampling", "use_radial_filters")
+    payload = {"class_name": "training.networks_stylegan3.Generator",
+               "init_kwargs": {**{k: cfg3[k] for k in keys},
+                               "mapping_kwargs": {"num_layers": cfg3.num_mapping_layers}},
+               "state": {k: v.numpy() for k, v in checkpoint.params_to_state_dict(p3).items()}}
+    sg3_pkl = os.path.join(root, "network-snapshot-stylegan3.pkl")
+    with open(sg3_pkl, "wb") as f:
+        pickle.dump({"G_ema": payload}, f, pickle.HIGHEST_PROTOCOL)
+    q3, qcfg3, _, _ = checkpoint.load_stylegan(sg3_pkl)
+    if qcfg3.get("arch") != "stylegan3":
+        raise AssertionError(f"SG3 payload loaded as {qcfg3.get('arch')}")
+    # Every tensor bit for bit; then one module's image under each load (a
+    # second module could get other cuDNN algorithms, as phase 10 (a)
+    # shows of two engines).
+    sd_native, sd_pickle = (checkpoint.params_to_state_dict(p) for p in (p3, q3))
+    if sd_native.keys() != sd_pickle.keys() or \
+            not all(torch.equal(sd_native[k], sd_pickle[k]) for k in sd_native):
+        raise AssertionError("SG3 pickle's tensors differ from the native checkpoint's")
+    qcfg3.num_fp16_res = 4
+    G3 = networks_for(qcfg3).Generator(qcfg3).to(dev).eval()
+    z3 = torch.randn([8, qcfg3.z_dim], generator=torch.Generator(device=dev).manual_seed(43),
+                     device=dev)
+    imgs = {}
+    for name, sd in (("native", sd_native), ("pickle", sd_pickle)):
+        G3.load_state_dict(sd)
+        reset_counters(counters)
+        with torch.no_grad():
+            imgs[name] = G3(z3)
+        torch.cuda.synchronize()
+    sg3_launches, sg3_variants = read_counters(counters, "stylegan3 pickle",
+                                               ["filtered_lrelu_fwd"])
+    sg3_bit_equal = torch.equal(imgs["pickle"], imgs["native"])
+    sg3_err = rel_close(imgs["pickle"], imgs["native"], CONVERT_TOL, "SG3 pickle's image")
+    log(f"  SG3-T payload (class_name {payload['class_name']}): arch stylegan3, every tensor "
+        f"bit-equal to the native checkpoint's, image at batch 8 "
+        f"{'bit-equal' if sg3_bit_equal else f'rel err {sg3_err:.2e}'} to the native one's; "
+        f"launches {sg3_launches}, by variant {sg3_variants['filtered_lrelu']}")
+    rec["stylegan3_pickle"] = dict(bit_equal=sg3_bit_equal, rel_err=sg3_err,
+                                   launches=sg3_launches, variant_launches=sg3_variants)
+    del G3, sd_native, sd_pickle
+    del imgs
+    torch.cuda.empty_cache()
+
+    # (d) A TorchScript VGG16 with LPIPS heads.
+    torch.manual_seed(44)
+    ts_path = os.path.join(root, "vgg16.pt")
+    torch.jit.script(_ts_vgg16(torch, vgg).eval()).save(ts_path)
+    params = vgg.convert_torchscript(ts_path)
+    mod = torch.jit.load(ts_path, map_location=dev).eval()
+    plan = [it[0] for it in vgg.VGG16_PLAN if it != "M"]
+    x = torch.randn([2 * BATCH, 3, 64, 64], generator=torch.Generator(device=dev).manual_seed(45),
+                    device=dev)
+    taps, i = {}, 0
+    with torch.no_grad():
+        h = x
+        for layer in mod.layers.children():
+            h = layer(h)
+            if getattr(layer, "original_name", "") == "ReLU":
+                if plan[i] in vgg.LPIPS_TAPS:
+                    taps[plan[i]] = h
+                i += 1
+        acts = vgg.vgg_features(vgg.params_from_numpy(params, dev), x, taps=vgg.LPIPS_TAPS,
+                                input_range="unit")
+    vgg_errs = {t: rel_close(acts[t], taps[t], CONVERT_TOL, f"TorchScript VGG16 tap {t}")
+                for t in vgg.LPIPS_TAPS}
+    log(f"  TorchScript VGG16 -> convert_torchscript: LPIPS taps on the card vs the script "
+        f"module's, max err / max |script| " + ", ".join(f"{t} {e:.2e}" for t, e in
+                                                       vgg_errs.items()) + f" (bound {CONVERT_TOL})")
+    rec["vgg16_torchscript"] = dict(rel_err=vgg_errs, bound=CONVERT_TOL,
+                                    has_lin=sorted(params.get("lin", {})) == sorted(vgg.LPIPS_TAPS))
+    del mod, taps, acts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -1262,6 +1659,8 @@ def main():
               "(latentaugment_tpu_torch/ is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    # Phase 10's stand-ins of NVIDIA's networks (numpy and torch only).
+    sys.path.insert(1, os.path.join(REPO, "tests"))
     import numpy as np
 
     from latentaugment_tpu_torch import benchmark
@@ -1305,9 +1704,13 @@ def main():
     metrics_rec = phase_metrics(torch, np, all_counters, ["bias_act_fwd", "upfirdn2d"],
                                 slice_rec, dev)
     train_rec = phase_train(torch, np, all_counters, [*ba.launches, *up.launches], dev)
+    convert_rec = phase_convert(torch, np, all_counters, slice_rec, sg3_rec, dev)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
-             "metrics": metrics_rec, "train": train_rec}
+             "metrics": metrics_rec, "train": train_rec,
+             "walk_nvidia_pickle": convert_rec["nvidia_pickle"],
+             "walk_conditional": convert_rec["conditional"],
+             "stylegan3_pickle": convert_rec["stylegan3_pickle"]}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -1355,7 +1758,8 @@ def main():
                    "second_order": second_recs, "train": train_rec,
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
                    "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
-                   "metrics": metrics_rec, "kernels": kernels}, f, indent=1)
+                   "metrics": metrics_rec, "convert": convert_rec, "kernels": kernels}, f,
+                  indent=1)
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -15,9 +15,12 @@ local criterion's three taps on [-1,1] input (criteria/lpips.py). With
 `--verbose_log` the first batch runs the un-fused walk, which times each
 loss term on the host and, at batch 1, snapshots w and the image per step.
 
+A conditional checkpoint (c_dim > 0) takes one-hot labels `c` [B, c_dim]
+in `forward` / `forward_ganrand`: they reach the projection
+discriminator inside the walk and the mapping for z input.
+
 Not ported here: the device mesh and tensor parallelism (a `mesh` that is
-not None raises) and the walk's conditional branch (a generator with
-c_dim > 0 raises in make_walk_fns).
+not None raises).
 """
 
 import json
@@ -47,21 +50,14 @@ def make_bundle(G, D=None, vgg_params=None, W_summary=None, X_cc_summaries=None,
             "fea_summaries": fea_summaries}
 
 
-def require_unconditional_walk(g_cfg):
-    if g_cfg.c_dim > 0:
-        raise NotImplementedError(
-            "the walk's conditional branch (c_dim > 0) is not ported yet; it comes "
-            "with the mesh slice (the networks and the trainer take labels already)")
-
-
 def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                   w_disc, num_epochs=10, opt_lr=0.01, crop_size=64,
                   preprocess="center_random_crop", soft_aug=False, alpha=1.0,
                   truncation_psi=1.0, remat=False, lpips_variant="script",
                   lpips_ref_input=False):
     """Build the walk/ganrand/z_to_w/synthesize functions. Each takes a
-    bundle (make_bundle) as its first argument."""
-    require_unconditional_walk(g_cfg)
+    bundle (make_bundle) as its first argument; `c` [B, c_dim], where a
+    function takes it, holds the labels of a conditional checkpoint."""
     res = g_cfg.img_resolution
     num_ws = g_cfg.num_ws
     modalities = list(range(n_modes))
@@ -84,8 +80,8 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
         W_mean, W_msq = bundle["W_summary"]
         return w_latent * losses.l2_mean_loss(ws, W_mean, W_msq)
 
-    def term_disc(bundle, x):
-        return w_disc * losses.disc_softplus_loss(bundle["D"](x, remat=remat))
+    def term_disc(bundle, x, c=None):
+        return w_disc * losses.disc_softplus_loss(bundle["D"](x, c, remat=remat))
 
     def term_pix(bundle, x):
         x_cc = manifold.center_crop(x, res)
@@ -116,31 +112,32 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                                                       normalize=False)
         return acc / n_modes
 
+    # Each term as (bundle, ws, x, crop_pos, c) -> loss.
     terms = {}
     if w_latent > 0.0:
-        terms["loss_latent"] = lambda bundle, ws, x, crop_pos: term_latent(bundle, ws)
+        terms["loss_latent"] = lambda bundle, ws, x, crop_pos, c: term_latent(bundle, ws)
     if w_disc > 0.0:
-        terms["loss_disc"] = lambda bundle, ws, x, crop_pos: term_disc(bundle, x)
+        terms["loss_disc"] = lambda bundle, ws, x, crop_pos, c: term_disc(bundle, x, c)
     if w_pix > 0.0:
-        terms["loss_pix"] = lambda bundle, ws, x, crop_pos: term_pix(bundle, x)
+        terms["loss_pix"] = lambda bundle, ws, x, crop_pos, c: term_pix(bundle, x)
     if w_lpips > 0.0:
-        terms["loss_lpips"] = lambda bundle, ws, x, crop_pos: term_lpips(bundle, x, crop_pos)
+        terms["loss_lpips"] = lambda bundle, ws, x, crop_pos, c: term_lpips(bundle, x, crop_pos)
 
-    def loss_fn(bundle, w, crop_pos):
+    def loss_fn(bundle, w, crop_pos, c=None):
         """(total, aux): total = -latent - pix - lpips + disc."""
         ws, x = synth(bundle, w)
-        aux = {name: fn(bundle, ws, x, crop_pos) for name, fn in terms.items()}
+        aux = {name: fn(bundle, ws, x, crop_pos, c) for name, fn in terms.items()}
         total = (-aux.get("loss_latent", 0.0) - aux.get("loss_pix", 0.0)
                  - aux.get("loss_lpips", 0.0) + aux.get("loss_disc", 0.0))
         aux["loss"] = total
         return total, aux
 
-    def adam_step(bundle, carry, t, crop_pos):
+    def adam_step(bundle, carry, t, crop_pos, c=None):
         """One Adam update on w; `t` is the 0-based step (a Python int)."""
         w, m, v = carry
         with torch.enable_grad():
             w_leaf = w.detach().requires_grad_(True)
-            total, aux = loss_fn(bundle, w_leaf, crop_pos)
+            total, aux = loss_fn(bundle, w_leaf, crop_pos, c)
             if terms:
                 g, = torch.autograd.grad(total, w_leaf)
             else:
@@ -156,28 +153,28 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
         img = bundle["G"].synthesis(ws_aug, noise_mode="random", generator=generator)
         return img, ws_aug
 
-    def walk(bundle, w0, crop_pos, generator):
+    def walk(bundle, w0, crop_pos, generator, c=None):
         """K Adam steps on w; returns (img_aug, ws_aug, traces) where
         traces maps each loss name to a [K] tensor of the per-step values
         (taken before each step's update)."""
         carry = (w0, torch.zeros_like(w0), torch.zeros_like(w0))
         steps = []
         for t in range(num_epochs):
-            carry, aux = adam_step(bundle, carry, t, crop_pos)
+            carry, aux = adam_step(bundle, carry, t, crop_pos, c)
             steps.append(aux)
         img, ws_aug = finish(bundle, w0, carry[0], generator)
         traces = {k: torch.stack([s[k] for s in steps]) for k in steps[0]} if steps else {}
         return img, ws_aug, traces
 
     @torch.no_grad()
-    def ganrand(bundle, z, generator):
-        ws = bundle["G"].mapping(z, truncation_psi=truncation_psi)
+    def ganrand(bundle, z, generator, c=None):
+        ws = bundle["G"].mapping(z, c, truncation_psi=truncation_psi)
         img = bundle["G"].synthesis(ws, noise_mode="random", generator=generator)
         return img, ws
 
     @torch.no_grad()
-    def z_to_w(bundle, z):
-        return bundle["G"].mapping(z, truncation_psi=truncation_psi)[:, :1, :]
+    def z_to_w(bundle, z, c=None):
+        return bundle["G"].mapping(z, c, truncation_psi=truncation_psi)[:, :1, :]
 
     @torch.no_grad()
     def synthesize(bundle, ws, generator):
@@ -353,13 +350,14 @@ class LatentAugEngine:
         return r
 
     def load_stylegan(self, opt):
-        """Native checkpoint -> (G, D) modules on the device, frozen."""
+        """A native checkpoint or an NVIDIA / TF-era pickle -> (G, D)
+        modules on the device, frozen."""
         path = resolve_stylegan_path(
             self.model_dir, self.dataset, self.dataset_name,
             self.modalities, self.exp_stylegan, self.network_pkl_stylegan)
         print(f'Loading stylegan from "{path}"...')
-        g_params, g_cfg, d_params, d_cfg = checkpoint.load_stylegan(path)
-        require_unconditional_walk(g_cfg)
+        g_params, g_cfg, d_params, d_cfg = checkpoint.load_stylegan(
+            path, img_resolution=self.res, img_channels=len(self.modalities))
         # bf16 for the top blocks is a run-time choice, whatever the
         # checkpoint was trained with.
         n16 = (opt.num_fp16_res or 0) if self.res >= 64 else 0
@@ -388,32 +386,55 @@ class LatentAugEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def forward(self, w, fname=None):
+    def _check_labels(self, c, batch):
+        """Labels must reach a conditional network: an unconditional one
+        would ignore them, and the walk would not be the one asked for."""
+        c_dim = max(self.G_cfg.c_dim, self.D.cfg.c_dim if self.D is not None else 0)
+        if c_dim == 0:
+            raise ValueError("labels `c` were passed but the loaded checkpoint is "
+                             "unconditional (c_dim == 0): they would be ignored")
+        if tuple(c.shape) != (batch, c_dim):
+            raise ValueError(f"labels c must be one-hot [{batch}, {c_dim}], got {tuple(c.shape)}")
+
+    def _labels(self, c, batch):
+        if c is None:
+            return None
+        c = self._to_device(c)
+        self._check_labels(c, batch)
+        return c
+
+    def forward(self, w, fname=None, c=None):
         """w [B, 1, w_dim] (or z [B, z_dim]) -> (img_aug, ws_aug [B, num_ws, w_dim]),
-        both tensors on the device. With verbose_log the first batch runs
-        the un-fused walk (`fname` names its snapshots); later ones run the
+        both tensors on the device. `c` [B, c_dim]: one-hot labels of a
+        conditional checkpoint, for the projection D inside the walk and
+        the mapping of z. With verbose_log the first batch runs the
+        un-fused walk (`fname` names its snapshots); later ones run the
         fused walk and record its loss traces and wall time."""
         w = self._to_device(w)
+        c = self._labels(c, w.shape[0])
         if w.ndim == 2:
-            w = self._fns.z_to_w(self._bundle, w)
+            w = self._fns.z_to_w(self._bundle, w, c)
         crop_pos = manifold.get_params(self.res, self.crop_size, self.preprocess,
                                        rng=self._crop_rng)["crop_pos"]
         tick = time.time()
         if self.verbose_log and not self._verbose_done:
             self._verbose_done = True
-            img, ws_aug = self._walk_debug(w, crop_pos, fname)
+            img, ws_aug = self._walk_debug(w, crop_pos, fname, c)
             self._sync()
             self.stats_time["last_forward_s"] = time.time() - tick
             return img, ws_aug
         img, ws_aug, self.last_traces = self._fns.walk(self._bundle, w, crop_pos,
-                                                       self._synth_gen)
+                                                       self._synth_gen, c)
         if self.verbose_log:
             self._sync()
             self._record_traces(self.last_traces, time.time() - tick)
         return img, ws_aug
 
-    def forward_ganrand(self, z):
-        return self._fns.ganrand(self._bundle, self._to_device(z), self._synth_gen)
+    def forward_ganrand(self, z, c=None):
+        """z [B, z_dim] (and labels c as in forward) -> (img, ws)."""
+        z = self._to_device(z)
+        return self._fns.ganrand(self._bundle, z, self._synth_gen,
+                                 self._labels(c, z.shape[0]))
 
     def synthetize(self, ws, generator=None):
         """ws [B, num_ws, w_dim] -> image with random noise, drawn from
@@ -443,7 +464,7 @@ class LatentAugEngine:
     # ------------------------------------------------------------------
     # Verbose walk: per-term timing and per-step snapshots
 
-    def _walk_debug(self, w0, crop_pos, fname=None):
+    def _walk_debug(self, w0, crop_pos, fname=None, c=None):
         """Un-fused K-step walk. Each loss term is evaluated on its own and
         timed on the host (time_latent / time_disc / time_pix / time_lpips);
         at batch 1, w and the image are snapshotted per step. The Adam
@@ -459,11 +480,11 @@ class LatentAugEngine:
                 loss_d, time_d = EasyDict(), EasyDict()
                 for name, term in fns.terms.items():
                     tik = time.time()
-                    loss_d[name] = float(term(bundle, ws, x, crop_pos))  # waits for the device
+                    loss_d[name] = float(term(bundle, ws, x, crop_pos, c))  # waits for the device
                     time_d[f"time_{name[len('loss_'):]}"] = time.time() - tik
             loss_d["loss"] = (-loss_d.get("loss_latent", 0.0) - loss_d.get("loss_pix", 0.0)
                               - loss_d.get("loss_lpips", 0.0) + loss_d.get("loss_disc", 0.0))
-            carry, aux = fns.adam_step(bundle, carry, epoch, crop_pos)
+            carry, aux = fns.adam_step(bundle, carry, epoch, crop_pos, c)
             steps.append(aux)
             self._sync()
             time_d["time_epoch"] = time.time() - tick_epoch

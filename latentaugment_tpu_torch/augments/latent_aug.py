@@ -6,6 +6,9 @@ samples z ~ N(0, I)), w lookup from the inversion zip, A/B channel
 concat, output split with optional lower-bound clip, latent accessors,
 per-batch wall times and the sanity_check PNG dumps. Data is NumPy at
 the API boundary (NCHW float32); the engine moves it to `--device`.
+`--gpu_ids_aug` is kept for the JAX package's command lines and selects
+nothing; `--n_mesh_devices` / `--n_model_devices` above 1 raise (the
+data- and tensor-parallel walk belongs to the DDP slice).
 """
 
 import os
@@ -48,6 +51,9 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--interim_dir', help='Where to save/load the data', metavar='DIR', required=True)
         parser.add_argument('--device', type=str, default='cuda', help='torch device of the walk (cuda, cuda:N or cpu); cuda without CUDA raises')
         parser.add_argument('--impl', type=str, default='auto', choices=['auto', 'ref'], help="ops: 'auto' runs the hand-written kernels on CUDA, 'ref' the plain PyTorch versions")
+        parser.add_argument('--gpu_ids_aug', type=str, default='0', help='kept for command-line compatibility; --device selects the device')
+        parser.add_argument('--n_mesh_devices', type=int, default=0, help='shard the batch over this many devices (more than 1 needs the DDP slice, not ported yet)')
+        parser.add_argument('--n_model_devices', type=int, default=0, help='tensor parallelism over this many devices (more than 1 needs the DDP slice, not ported yet)')
 
         # Common dataset options.
         parser.add_argument('--dataset_aug', help='', metavar='DIR', default="Pelvis_2.1_repo_no_mask")
@@ -90,6 +96,10 @@ class LatentAugment(BaseAugment):
         return parser
 
     def __init__(self, opt):
+        if max(getattr(opt, 'n_mesh_devices', 0), getattr(opt, 'n_model_devices', 0)) > 1:
+            raise NotImplementedError(
+                "--n_mesh_devices / --n_model_devices > 1 belong to the DDP slice, "
+                "which is not ported yet")
         BaseAugment.__init__(self, opt)
         self.device = engine_mod.resolve_device(opt.device)
         self.phase = opt.phase

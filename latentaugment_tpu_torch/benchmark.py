@@ -10,7 +10,9 @@
 
 `arch` picks the generator: "stylegan2" (default) or "stylegan3" (the
 alias-free SG3-T, whose generator_config takes further keyword
-overrides through **g_over); D is always the StyleGAN2 one.
+overrides through **g_over); D is always the StyleGAN2 one. `c_dim` > 0
+builds a conditional pair (label-embedding mapping, projection D), whose
+walk takes labels.
 
 Defaults are the operating point: 256x256, 2 modalities, channel_base
 32768, channel_max 512, bf16 in the top 4 blocks, LPIPS on 64x64 crops,
@@ -35,14 +37,14 @@ MODALITIES = ["MR_nonrigid_CT", "MR_MR_T2"]
 
 
 def make_gd_configs(res, img_channels, channel_base, channel_max, num_fp16_res,
-                    mbstd_group_size=4, arch="stylegan2", **g_over):
+                    mbstd_group_size=4, c_dim=0, arch="stylegan2", **g_over):
     """The operating point's G/D configs; bf16 only from 64x64 up."""
     n16 = num_fp16_res if res >= 64 else 0
     g_cfg = networks_for({"arch": arch}).generator_config(
-        img_resolution=res, img_channels=img_channels, channel_base=channel_base,
-        channel_max=channel_max, num_fp16_res=n16, **g_over)
+        c_dim=c_dim, img_resolution=res, img_channels=img_channels,
+        channel_base=channel_base, channel_max=channel_max, num_fp16_res=n16, **g_over)
     d_cfg = networks.discriminator_config(
-        img_resolution=res, img_channels=img_channels, channel_base=channel_base,
+        c_dim=c_dim, img_resolution=res, img_channels=img_channels, channel_base=channel_base,
         channel_max=channel_max, mbstd_group_size=mbstd_group_size, num_fp16_res=n16)
     return g_cfg, d_cfg
 
@@ -51,11 +53,12 @@ def build_synthetic_setup(device, res=256, img_channels=2, channel_base=32768,
                           channel_max=512, num_epochs=10, opt_lr=0.01,
                           crop_size=64, w_pix=0.1, w_lpips=10.0, w_latent=0.001,
                           w_disc=0.01, manifold_items=64, num_fp16_res=4,
-                          remat=False, seed=0, impl='auto', arch="stylegan2", **g_over):
+                          remat=False, seed=0, impl='auto', c_dim=0, arch="stylegan2",
+                          **g_over):
     """Returns (fns, bundle, g_cfg): the walk functions (taking the bundle
     as first argument) and the device state, on seeded synthetic weights."""
     g_cfg, d_cfg = make_gd_configs(res, img_channels, channel_base, channel_max,
-                                   num_fp16_res, arch=arch, **g_over)
+                                   num_fp16_res, c_dim=c_dim, arch=arch, **g_over)
     G = networks_for(g_cfg).Generator(g_cfg, seed=seed, impl=impl).to(device).eval() \
         .requires_grad_(False)
     D = networks.Discriminator(d_cfg, seed=seed + 1, impl=impl).to(device).eval() \
@@ -95,8 +98,8 @@ def build_synthetic_setup(device, res=256, img_channels=2, channel_base=32768,
 def build_policy_workspace(root, res=256, batch_size=32, num_epochs=10,
                            opt_lr=0.01, crop_size=64, channel_base=32768,
                            channel_max=512, num_fp16_res=4, n_patients=4,
-                           slices_per_patient=24, step=10, seed=0, arch="stylegan2",
-                           **g_over):
+                           slices_per_patient=24, step=10, seed=0, c_dim=0,
+                           arch="stylegan2", **g_over):
     """Write a synthetic workspace under `root` (native checkpoint from
     seeded weights, image zip, inversion zip) and return the AugOptions
     argv that runs the LatentAugment policy on it (without --device,
@@ -111,7 +114,7 @@ def build_policy_workspace(root, res=256, batch_size=32, num_epochs=10,
     os.makedirs(ddir, exist_ok=True)
 
     g_cfg, d_cfg = make_gd_configs(res, len(MODALITIES), channel_base, channel_max,
-                                   num_fp16_res, arch=arch, **g_over)
+                                   num_fp16_res, c_dim=c_dim, arch=arch, **g_over)
     ckpt = os.path.join(root, "policy_ckpt.pkl")
     checkpoint.save_checkpoint(ckpt, networks_for(g_cfg).Generator(g_cfg, seed=seed),
                                networks.Discriminator(d_cfg, seed=seed + 1))

@@ -8,8 +8,9 @@ File layout: {'G': {'cfg': {...}, 'params': nested dict}, 'D': {...}}.
 The nested dict's joined paths are the modules' state_dict keys, so the
 bridge is a flatten / unflatten. The G cfg of an alias-free (StyleGAN3)
 generator carries the tag arch='stylegan3', which picks the generator
-module on load; D is always the StyleGAN2 one. The NVIDIA and TF pickle
-converters (and the StyleGAN3 pickle ingestion) are not ported.
+module on load; D is always the StyleGAN2 one. `load_stylegan` reads a
+native file through a numpy-only unpickler and hands any other file (an
+NVIDIA StyleGAN2 / StyleGAN3 pickle, a TF-era pickle) to convert.py.
 """
 
 import io
@@ -45,7 +46,7 @@ def params_to_state_dict(params, prefix=""):
         if isinstance(v, dict):
             out.update(params_to_state_dict(v, key + "."))
         else:
-            out[key] = torch.tensor(np.asarray(v, dtype=np.float32))
+            out[key] = torch.tensor(np.array(v, dtype=np.float32, order="C"))
     return out
 
 
@@ -104,20 +105,24 @@ class _NumpyUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def read_bytes(path_or_file):
+    """The whole file, from a path or a binary file object."""
+    if hasattr(path_or_file, "read"):
+        return path_or_file.read()
+    with open(path_or_file, "rb") as f:
+        return f.read()
+
+
 def load_pickle(path):
-    with open(path, "rb") as f:
-        return _NumpyUnpickler(io.BytesIO(f.read())).load()
+    return _NumpyUnpickler(io.BytesIO(read_bytes(path))).load()
 
 
-def load_stylegan(path):
-    """Native checkpoint -> (G_params, G_cfg, D_params, D_cfg), params as
-    nested numpy dicts (D_* None when the file has no D)."""
-    obj = load_pickle(path)
-    if not (isinstance(obj, dict) and isinstance(obj.get("G"), dict)
-            and "params" in obj["G"]):
-        raise ValueError(f"{path} is not a native checkpoint; the NVIDIA / TF "
-                         "pickle converters are not ported (they wait for such "
-                         "files in the repository)")
+def is_native(obj):
+    return isinstance(obj, dict) and isinstance(obj.get("G"), dict) and "params" in obj["G"]
+
+
+def from_native(obj):
+    """A native checkpoint's dict -> (G_params, G_cfg, D_params, D_cfg)."""
     g_kw = dict(obj["G"]["cfg"])
     arch = g_kw.pop("arch", "stylegan2")
     if arch not in ("stylegan2", "stylegan3"):
@@ -125,3 +130,21 @@ def load_stylegan(path):
     g_cfg = (networks_sg3 if arch == "stylegan3" else networks).generator_config(**g_kw)
     d_cfg = networks.discriminator_config(**obj["D"]["cfg"]) if "D" in obj else None
     return obj["G"]["params"], g_cfg, obj.get("D", {}).get("params"), d_cfg
+
+
+def load_stylegan(path, img_resolution=None, img_channels=None):
+    """A checkpoint file (path or binary file object) -> (G_params, G_cfg,
+    D_params, D_cfg), params as nested numpy dicts (D_* None when the file
+    has no D). A native file is read numpy-only; any other goes to
+    convert.load_stylegan, where `img_resolution` / `img_channels` override
+    what an NVIDIA pickle records."""
+    data = read_bytes(path)
+    try:
+        obj = _NumpyUnpickler(io.BytesIO(data)).load()
+    except pickle.UnpicklingError:
+        obj = None  # names a global a numpy tree does not need
+    if is_native(obj):
+        return from_native(obj)
+    from . import convert
+
+    return convert.load_stylegan(io.BytesIO(data), img_resolution, img_channels)

@@ -27,25 +27,29 @@ from .. import vgg
 from ...ops.adam import adam_step
 
 
-def w_stats_from_z(G, z):
+def w_stats_from_z(G, z, c=None):
     """(w_avg [1,1,w_dim], w_std scalar tensor) over the mapped `z`
-    [N, z_dim]. w_std is the root of the total squared deviation per
-    sample (summed over w_dim, not per coordinate), NVIDIA's convention."""
-    if G.cfg.c_dim > 0:
-        raise NotImplementedError(
-            "w_stats over a conditional generator (c_dim > 0) is not ported yet")
+    [N, z_dim] (with labels `c` [N, c_dim] for a conditional G). w_std is
+    the root of the total squared deviation per sample (summed over
+    w_dim, not per coordinate), NVIDIA's convention."""
     with torch.no_grad():
-        w = G.mapping(z, broadcast=False)  # [N, w_dim]
+        w = G.mapping(z, c, broadcast=False)  # [N, w_dim]
         w_avg = w.mean(dim=0)
         w_std = torch.sqrt((w - w_avg).square().sum() / z.shape[0])
     return w_avg.reshape(1, 1, -1), w_std
 
 
 def w_stats(G, generator, n_samples=10000):
-    """w_stats_from_z over z ~ N(0, I) drawn from `generator` on G's device."""
+    """w_stats_from_z over z ~ N(0, I) drawn from `generator` on G's
+    device; a conditional G averages over uniform one-hot labels, drawn
+    from the same generator after z."""
     device = next(G.parameters()).device
     z = torch.randn([n_samples, G.cfg.z_dim], generator=generator, device=device)
-    return w_stats_from_z(G, z)
+    c = None
+    if G.cfg.c_dim > 0:
+        idx = torch.randint(0, G.cfg.c_dim, [n_samples], generator=generator, device=device)
+        c = torch.nn.functional.one_hot(idx, G.cfg.c_dim).float()
+    return w_stats_from_z(G, z, c)
 
 
 def schedule(t, num_steps, initial_lr=0.1, initial_noise_factor=0.05,

@@ -9,8 +9,9 @@ layout the JAX package pickles, so one numpy pickle feeds both.
 layers of channel-unit-normalized activations scaled by
 sqrt(lin / (H*W)), so a squared-L2 distance between two embeddings is
 the LPIPS distance. `detector_features` is the VGG16 trunk with the
-fc6 / fc7 head, the 4096-d features precision/recall reads. The
-TorchScript converter (`convert_torchscript`) is not ported.
+fc6 / fc7 head, the 4096-d features precision/recall reads.
+`convert_torchscript` turns NVIDIA's TorchScript `vgg16.pt` into that
+tree.
 """
 
 import pickle
@@ -194,6 +195,31 @@ def load_params(path, device=torch.device("cpu"), require=()):
     if missing:
         raise ValueError(f"param tree lacks required keys {missing}")
     return params_from_numpy(obj, device)
+
+
+def convert_torchscript(ts_path, out_path=None):
+    """NVIDIA's TorchScript vgg16.pt -> {convX_Y: {weight, bias}, lin: {tap:
+    [C]}} as nested numpy arrays, pickled to `out_path` when given (what
+    load_params reads). The script module's 3x3 conv weights map in
+    definition order onto VGG16_PLAN, its LPIPS linear weights (|.|) in
+    order onto LPIPS_TAPS (counterpart:
+    latentaugment_tpu/models/vgg.py:237-269)."""
+    state = dict(torch.jit.load(ts_path, map_location="cpu").state_dict())
+    convs = [(k, v) for k, v in state.items()
+             if k.endswith("weight") and v.ndim == 4 and v.shape[-1] == 3]
+    lins = [(k, v) for k, v in state.items()
+            if v.ndim in (2, 4) and (v.ndim == 2 or v.shape[-1] == 1) and "lin" in k.lower()]
+    plan_names = [it[0] for it in VGG16_PLAN if it != "M"]
+    params = {name: {"weight": w.detach().float().numpy(),
+                     "bias": state[k[:-len("weight")] + "bias"].detach().float().numpy()}
+              for (k, w), name in zip(convs, plan_names)}
+    if lins:
+        params["lin"] = {tap: np.abs(v.detach().float().numpy()).reshape(-1)
+                         for (_, v), tap in zip(lins, LPIPS_TAPS)}
+    if out_path:
+        with open(out_path, "wb") as f:
+            pickle.dump(params, f, pickle.HIGHEST_PROTOCOL)
+    return params
 
 
 def get_vgg16(path=None, seed=0, device=torch.device("cpu")):

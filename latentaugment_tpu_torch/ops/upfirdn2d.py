@@ -94,6 +94,31 @@ def setup_filter(f, device=torch.device('cpu'), normalize=True, flip_filter=Fals
     return torch.as_tensor(f.copy(), dtype=torch.float32, device=device)
 
 
+def separable_factor(f2d):
+    """1-D taps `a` with f2d == outer(a, a), or None (numpy, on the host;
+    counterpart: latentaugment_tpu/ops/upfirdn2d.py:84-105).
+
+    Checkpoints store the StyleGAN2 resample filter as the 2-D buffer
+    outer([1,3,3,1], [1,3,3,1]) / 64; the kernel's separable variants take
+    only its 1-D taps, so converters factor it. A filter that is not
+    rank 1, or rank 1 but not symmetric, gives None."""
+    f = np.asarray(f2d, np.float64)
+    if f.ndim == 1:
+        return f.astype(np.float32)
+    if f.ndim != 2 or f.shape[0] != f.shape[1]:
+        return None
+    u, s, vt = np.linalg.svd(f)
+    if s[0] <= 0 or (len(s) > 1 and s[1:].max() > 1e-6 * s[0]):
+        return None
+    a = u[:, 0] * np.sqrt(s[0])
+    b = vt[0] * np.sqrt(s[0])
+    if a.sum() < 0:
+        a, b = -a, -b
+    if not np.allclose(a, b, atol=1e-9):
+        return None
+    return a.astype(np.float32)
+
+
 def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1,
               impl='auto'):
     """Apply the upsample/pad/FIR/downsample pipeline to NCHW `x`.

@@ -5,6 +5,10 @@ Three-phase parse: base flags, then the dataset's option setter (from
 this package's `data` registry), then the augment's (from its
 `augments` registry). A programmatic override dict serves sweep
 scripts; the experiment name encodes the operating point.
+
+`--gpu_ids` is kept for the JAX package's command lines and becomes the
+same list of ints there; it selects nothing (the augments' `--device`
+does). `--verbose` and `--suffix` are parsed and unused, as there.
 """
 
 import argparse
@@ -33,6 +37,7 @@ class BaseOptions:
     def initialize(self, parser):
         parser.add_argument('--dataroot', required=True, help='path to images (zip of per-slice pickle dicts)')
         parser.add_argument('--name', type=str, default='experiment_name', help='name of the experiment. It decides where to store samples and models')
+        parser.add_argument('--gpu_ids', type=str, default='0', help='accelerator ids, kept for command-line compatibility; --device selects the device')
         parser.add_argument('--checkpoints_dir', type=str, default='./checkpoints', help='models are saved here')
         # dataset parameters
         parser.add_argument('--dataset_mode', type=str, default='pelvis2.1', help='chooses how datasets are loaded.')
@@ -41,6 +46,8 @@ class BaseOptions:
         parser.add_argument('--batch_size', type=int, default=1, help='input batch size')
         parser.add_argument('--serial_batches', action='store_true', help='if true, takes images in order to make batches, otherwise takes them randomly')
         parser.add_argument('--max_dataset_size', type=int, default=float("inf"), help='Maximum number of samples allowed per dataset.')
+        parser.add_argument('--verbose', action='store_true', help='if specified, print more debugging information')
+        parser.add_argument('--suffix', default='', type=str, help='customized suffix: opt.name = opt.name + suffix')
         parser.add_argument('--seed', type=int, default=42, help='global RNG seed (crop draws, noise and z generators)')
         self.initialized = True
         return parser
@@ -85,7 +92,9 @@ class BaseOptions:
         if args is not None:
             if 'n_imgs' in args:
                 opt.n_imgs = args['n_imgs']
-            if opt.aug == 'latent' and getattr(opt, 'rand_aug', False):
+            if opt.aug == 'geometric':
+                keys = ('p_thres', 'horizontal_flip', 'affine', 'elastic_deform')
+            elif opt.aug == 'latent' and getattr(opt, 'rand_aug', False):
                 keys = ('p_thres', 'truncation_psi')
             else:
                 keys = ('p_thres', 'opt_num_epochs', 'opt_lr', 'w_lpips',
@@ -97,8 +106,12 @@ class BaseOptions:
         opt.isTrain = self.isTrain
 
         # The experiment name records the operating point.
-        if opt.aug == 'latent' and hasattr(opt, 'n_imgs'):
-            if getattr(opt, 'rand_aug', False):
+        if opt.aug is not None and hasattr(opt, 'n_imgs'):
+            if opt.aug == 'geometric':
+                suffix = (f"n_imgs_{opt.n_imgs}-p_thres_{opt.p_thres}"
+                          f"-horizontal_flip_{opt.horizontal_flip}-affine_{opt.affine}"
+                          f"-elastic_deform_{opt.elastic_deform}")
+            elif opt.aug == 'latent' and getattr(opt, 'rand_aug', False):
                 suffix = f"n_imgs_{opt.n_imgs}-truncation_psi_{opt.truncation_psi}"
             else:
                 suffix = (f"n_imgs_{opt.n_imgs}-opt_lr_{opt.opt_lr}"
@@ -112,5 +125,6 @@ class BaseOptions:
                 file_name=os.path.join(opt.checkpoints_dir, opt.name, 'log.txt'),
                 file_mode='a', should_flush=True)
         self.print_options(opt)
+        opt.gpu_ids = [int(s) for s in str(opt.gpu_ids).split(',') if s != '' and int(s) >= 0]
         self.opt = opt
         return self.opt

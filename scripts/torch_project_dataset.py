@@ -6,7 +6,8 @@ One inverted w per slice, written as
 ``<split>/<patient>/<slice>.pickle``, member for member the image zip's
 names, which is the inversion zip the LatentAugment policy reads with
 ``--init_w inv``. Projection is batched: every step is one generator and
-VGG16 forward and backward over the batch. Native checkpoints only.
+VGG16 forward and backward over the batch. The checkpoint is a native
+one or an NVIDIA (StyleGAN2 / StyleGAN3) or TF-era network pickle.
 
     python scripts/torch_project_dataset.py \
         --checkpoint ckpt.pkl --data_zip interim/Pelvis/Pelvis-img.zip \
@@ -29,7 +30,8 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--checkpoint", required=True, help="native checkpoint holding G")
+    p.add_argument("--checkpoint", required=True,
+                   help="native checkpoint or NVIDIA / TF network pickle holding G")
     p.add_argument("--data_zip", required=True,
                    help="paired-image dataset zip (pickle dicts of modalities)")
     p.add_argument("--split", default="train")
@@ -87,7 +89,8 @@ def main(argv=None):
     device = engine.resolve_device(args.device)
     modalities = util_general.parse_comma_separated_list(args.modalities)
 
-    g_params, g_cfg, _, _ = checkpoint.load_stylegan(args.checkpoint)
+    g_params, g_cfg, _, _ = checkpoint.load_stylegan(
+        args.checkpoint, img_resolution=args.resolution, img_channels=len(modalities))
     if (g_cfg.img_resolution, g_cfg.img_channels) != (args.resolution, len(modalities)):
         raise ValueError(
             f"{args.checkpoint} generates {g_cfg.img_channels} x {g_cfg.img_resolution}^2, "

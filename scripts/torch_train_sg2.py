@@ -14,7 +14,8 @@ package's loader all read:
 
 The flags are those of scripts/train_sg2.py (NVIDIA train.py's names:
 gamma, kimg, snap, aug, p, target, augpipe, mirror, resume), plus
-`--device`. `--resume` takes a native checkpoint; `--resume-state` a
+`--device`. `--resume` takes a native checkpoint or an NVIDIA / TF-era
+network pickle with a discriminator; `--resume-state` a
 training state of this trainer (`training-state-*.pt`).
 """
 
@@ -59,7 +60,7 @@ def build_parser():
                    help='comma list of snapshot-time metrics (fid50k_full,pr50k3_full) '
                         'or "none"; needs --data (real statistics)')
     p.add_argument('--seed', type=int, default=0)
-    p.add_argument('--resume', default=None, help='native checkpoint to resume G/D from')
+    p.add_argument('--resume', default=None, help='native checkpoint or NVIDIA / TF network pickle to resume G/D from')
     p.add_argument('--resume-state', default=None, dest='resume_state',
                    help='training-state-*.pt of an interrupted run: continue exactly '
                         '(raw G/D, EMA, Adam moments, ADA controller, generator, nimg); '
@@ -203,8 +204,7 @@ def main(argv=None):
         g_cfg = networks.generator_config(**resume_state['g_cfg'])
         d_cfg = networks.discriminator_config(**resume_state['d_cfg'])
     elif args.resume:
-        # Native checkpoints only: the NVIDIA / TF pickle converters are not
-        # ported, and load_stylegan says so for such a file.
+        # A native checkpoint or an NVIDIA / TF-era pickle holding G and D.
         g_params, g_cfg, d_params, d_cfg = checkpoint.load_stylegan(args.resume)
         if d_params is None:
             raise ValueError(f'{args.resume} has no discriminator to resume from')

@@ -224,16 +224,17 @@ def test_checkpoint_loader_refuses_code(tmp_path):
 
 
 def test_conditional_and_sg3_raise():
-    """A conditional StyleGAN2 builds (the trainer takes labels), but the
-    walk's conditional branch is not ported and raises; the arch dispatch
-    returns the alias-free module for 'stylegan3' and StyleGAN2 otherwise."""
+    """A conditional StyleGAN2 builds, and so do the walk functions over it
+    (their labels: tests/test_torch_port_conditional.py); the arch
+    dispatch returns the alias-free module for 'stylegan3' and StyleGAN2
+    otherwise."""
     from latentaugment_tpu_torch.augments import engine
 
     g_cfg = net_t.generator_config(c_dim=3, **CFG)
     assert "mapping.embed.weight" in net_t.Generator(g_cfg).state_dict()
-    with pytest.raises(NotImplementedError, match="conditional branch"):
-        engine.make_walk_fns(g_cfg, n_modes=2, w_pix=0.1, w_lpips=1.0, w_latent=0.0,
-                             w_disc=0.0)
+    fns = engine.make_walk_fns(g_cfg, n_modes=2, w_pix=0.1, w_lpips=1.0, w_latent=0.0,
+                               w_disc=0.0)
+    assert set(fns.terms) == {"loss_pix", "loss_lpips"} and callable(fns.walk)
     from latentaugment_tpu_torch.models import networks_for
     from latentaugment_tpu_torch.models.stylegan3 import networks as net3_t
     assert networks_for({"arch": "stylegan3"}) is net3_t

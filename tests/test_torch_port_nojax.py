@@ -112,7 +112,11 @@ def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
     assert {"chip_smoke.py", "scripts/torch_project_dataset.py", "scripts/torch_train_sg2.py",
             "latentaugment_tpu_torch/models/stylegan2/train.py",
             "latentaugment_tpu_torch/metrics/metric_utils.py",
-            "latentaugment_tpu_torch/augments/geometric_aug.py"} <= names
+            "latentaugment_tpu_torch/augments/geometric_aug.py",
+            "latentaugment_tpu_torch/models/stylegan2/convert.py",
+            "latentaugment_tpu_torch/models/stylegan2/legacy.py",
+            "latentaugment_tpu_torch/models/stylegan3/convert.py",
+            "scripts/torch_convert_checkpoint.py", "scripts/torch_verify_real_weights.py"} <= names
     banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
     for path in files:
         with open(path) as f:

@@ -505,11 +505,33 @@ def test_cli_synthetic_snapshot_reads_in_the_policy_and_jax(tmp_path):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="DDP slice"):
         torch_train_sg2.main(["--synthetic", "--device", "cpu", "--n_devices", "2"])
+    # An NVIDIA wire-format pickle resumes (one step away from its weights);
+    # one without D has nothing to resume the discriminator from.
+    import reference_oracles as oracle
+
+    torch.manual_seed(4)
+    g_o = oracle.GeneratorT(z_dim=64, w_dim=64, img_resolution=32, img_channels=2,
+                            mapping_kwargs={"num_layers": 2},
+                            synthesis_kwargs={"channel_base": 1024, "channel_max": 64})
+    d_o = oracle.DiscriminatorT(img_resolution=32, img_channels=2)
     nvidia = tmp_path / "nvidia.pkl"
-    nvidia.write_bytes(pickle.dumps({"G_ema": None, "D": None}))
-    with pytest.raises(ValueError, match="not a native checkpoint"):
-        torch_train_sg2.main(["--synthetic", "--device", "cpu", "--resume", str(nvidia),
-                              "--outdir", str(tmp_path / "r")])
+    nvidia.write_bytes(oracle.persistence_pickle_bytes({"G_ema": g_o, "D": d_o}))
+    state = torch_train_sg2.main(["--synthetic", "--device", "cpu", "--batch", "4",
+                                  "--kimg", "0.004", "--snap", "0.004", "--resume", str(nvidia),
+                                  "--outdir", str(tmp_path / "r")])
+    for module, oracle_module in ((state.G_ema, g_o), (state.D, d_o)):
+        start = {k: v for k, v in oracle_module.state_dict().items()
+                 if not k.endswith("resample_filter")}
+        got = module.state_dict()
+        assert start.keys() <= got.keys()
+        moved = max((got[k] - v.reshape(got[k].shape)).abs().max().item()
+                    for k, v in start.items())
+        assert 0 < moved < 0.05, moved  # one Adam step from the pickle's weights
+    no_d = tmp_path / "nvidia_g_only.pkl"
+    no_d.write_bytes(oracle.persistence_pickle_bytes({"G_ema": g_o}))
+    with pytest.raises(ValueError, match="no discriminator"):
+        torch_train_sg2.main(["--synthetic", "--device", "cpu", "--resume", str(no_d),
+                              "--outdir", str(tmp_path / "r2")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             torch_train_sg2.main(["--synthetic", "--outdir", str(tmp_path / "c")])

@@ -465,3 +465,170 @@ def test_verbose_walk_snapshots_pair_next_w_with_this_image(verbose_policy):
     got = np.asarray(Image.open(os.path.join(eng.save_dir, "train_p_00010_0.png")))
     assert got.shape == (RES, N_MODES * RES)
     np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------------------------------
+# The options parser against the JAX package's: the sweep override dict
+# (`parse(args=...)`) and the JAX command line's compatibility flags.
+
+_BASE = ["--dataroot", "x.zip"]
+_LATENT = ["--aug", "latent", "--model_dir", "m", "--interim_dir", "i"]
+_PARSE_CASES = {
+    "geometric": (["--aug", "geometric"],
+                  {"n_imgs": 8, "p_thres": 0.0, "horizontal_flip": False, "affine": False,
+                   "elastic_deform": True, "opt_lr": 9.0}),
+    "latent": (_LATENT, {"n_imgs": 8, "p_thres": 0.0, "opt_num_epochs": 5, "opt_lr": 0.02,
+                         "w_lpips": 2.0, "w_pix": 0.5, "w_latent": 0.1, "w_disc": 0.2,
+                         "init_w": "inv", "truncation_psi": 0.3}),
+    "rand_aug": (_LATENT + ["--rand_aug"], {"n_imgs": 8, "p_thres": 0.3, "truncation_psi": 0.5,
+                                            "opt_lr": 9.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PARSE_CASES))
+def test_parse_overrides_and_name_match_jax(case, tmp_path):
+    """Each augment's override keys land, the others do not, and the
+    experiment name records the operating point as the JAX package's."""
+    argv, args = _PARSE_CASES[case]
+    argv = _BASE + argv + ["--checkpoints_dir", str(tmp_path)]
+    opt_j = AugOptions_j().parse(args=dict(args), argv=argv, install_logger=False)
+    opt_t = AugOptions_t().parse(args=dict(args), argv=argv, install_logger=False)
+    assert opt_t.name == opt_j.name
+    assert set(vars(opt_j)) <= set(vars(opt_t)), set(vars(opt_j)) - set(vars(opt_t))
+    for k, v in vars(opt_j).items():
+        assert getattr(opt_t, k) == v, k
+    assert os.path.isdir(os.path.join(str(tmp_path), opt_t.name))
+    if case == "geometric":
+        assert opt_t.name == ("experiment_name-n_imgs_8-p_thres_0.0-horizontal_flip_False"
+                              "-affine_False-elastic_deform_True")
+        assert opt_t.elastic_deform is True and opt_t.p_thres == 0.0
+    elif case == "rand_aug":
+        assert opt_t.name == "experiment_name-n_imgs_8-truncation_psi_0.5"
+        assert opt_t.opt_lr == 0.01  # not an override key of rand_aug
+    else:
+        assert (opt_t.opt_num_epochs, opt_t.init_w, opt_t.truncation_psi) == (5, "inv", 1.0)
+
+
+def test_jax_compatibility_flags_parse(tmp_path):
+    """The JAX command line's --gpu_ids, --verbose, --suffix and
+    --gpu_ids_aug parse as there (gpu_ids: the same list of ints, which
+    selects nothing); --n_mesh_devices / --n_model_devices parse, and above
+    1 the policy raises, naming the DDP slice."""
+    argv = _BASE + _LATENT + ["--checkpoints_dir", str(tmp_path), "--gpu_ids", "0,1",
+                              "--verbose", "--suffix", "_run", "--gpu_ids_aug", "1",
+                              "--n_mesh_devices", "1", "--n_model_devices", "0"]
+    opt_j = AugOptions_j().parse(argv=argv, install_logger=False)
+    opt_t = AugOptions_t().parse(argv=argv, install_logger=False)
+    for k in ("gpu_ids", "verbose", "suffix", "gpu_ids_aug", "n_mesh_devices", "n_model_devices"):
+        assert getattr(opt_t, k) == getattr(opt_j, k), k
+    assert opt_t.gpu_ids == [0, 1] and opt_t.verbose is True
+    for flag in ("--n_mesh_devices", "--n_model_devices"):
+        opt = AugOptions_t().parse(argv=argv + [flag, "2", "--device", "cpu"],
+                                   install_logger=False)
+        with pytest.raises(NotImplementedError, match="DDP slice"):
+            create_augment_t(opt)
+
+
+# ----------------------------------------------------------------------------
+# The policy's remaining paths: rand_aug / forward_ganrand, soft_aug with
+# alpha, lower_bound_clip.
+
+@pytest.fixture(scope="module")
+def rand_aug_policies(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("rand_aug"))
+    argv = benchmark_t.build_policy_workspace(
+        root, res=RES, batch_size=B, num_epochs=K, crop_size=CROP, channel_base=1024,
+        channel_max=64, n_patients=1, slices_per_patient=4, step=5)
+    argv += ["--rand_aug", "--truncation_psi", "0.7"]
+    out = {}
+    for flavour, options, create, extra in (
+            ("jax", AugOptions_j, create_augment_j, []),
+            ("torch", AugOptions_t, create_augment_t, ["--device", "cpu"])):
+        args = list(argv) + extra
+        args[args.index("--checkpoints_dir") + 1] = os.path.join(root, f"ckpts_{flavour}")
+        opt = options().parse(argv=args, install_logger=False)
+        out[flavour] = (create(opt), opt)
+    return out
+
+
+def test_rand_aug_ganrand_matches_jax(rand_aug_policies):
+    """The same z through both engines' forward_ganrand (truncation 0.7):
+    the same ws and, the workspace's noise strengths being zero, the same
+    images; the port's policy in rand_aug mode returns the ganrand of its
+    own seeded z, with no paths."""
+    (aug_j, _), (aug_t, opt_t) = rand_aug_policies["jax"], rand_aug_policies["torch"]
+    eng_j, eng_t = aug_j.latent_aug, aug_t.latent_aug
+    assert opt_t.opt_num_epochs == 0 and eng_t.w_disc == eng_t.w_lpips == 0.0
+    z = np.random.RandomState(8).randn(B, eng_t.z_dim).astype(np.float32)
+    img_j, ws_j = eng_j.forward_ganrand(z, key=jax.random.PRNGKey(1))
+    img_t, ws_t = eng_t.forward_ganrand(z)
+    _close(ws_t, ws_j)
+    _close(img_t, img_j, atol=1e-4)
+
+    x = np.full((B, 1, RES, RES), 0.25, np.float32)
+    paths = [f"train/p/train_p_{i:05d}.pickle" for i in range(B)]
+    aug_t.set_input({"A": x, "B": x, "A_paths": paths, "B_paths": paths})
+    aug_t.forward()
+    out, lat = aug_t.get_output(), aug_t.get_latent_output()
+    z_t = torch.randn((B, eng_t.z_dim), generator=torch.Generator().manual_seed(opt_t.seed))
+    img_j, ws_j = eng_j.forward_ganrand(z_t.numpy(), key=jax.random.PRNGKey(1))
+    assert aug_t.augmented and lat["paths"] == ""
+    _close(lat["w"], np.asarray(ws_j)[:, 0])
+    for m, k in enumerate(("A", "B")):
+        _close(out[k], np.asarray(img_j)[:, m:m + 1], atol=1e-4)
+
+
+def test_soft_aug_blends_like_jax():
+    """soft_aug with alpha 0.3: the final w is alpha * walked + (1 - alpha)
+    * w0, in both packages."""
+    cfg = dict(img_resolution=16, img_channels=N_MODES, channel_base=1024, channel_max=64)
+    g_cfg_j = net_j.generator_config(z_dim=64, w_dim=64, num_mapping_layers=2, **cfg)
+    d_cfg_j = net_j.discriminator_config(**cfg)
+    g_np = _np(net_j.generator_init(jax.random.PRNGKey(1), g_cfg_j))
+    d_np = _np(net_j.discriminator_init(jax.random.PRNGKey(2), d_cfg_j))
+    rng = np.random.RandomState(3)
+    W = rng.randn(M, g_cfg_j.num_ws, 64).astype(np.float32) * 0.5
+    w0 = rng.randn(B, 1, 64).astype(np.float32) * 0.5
+    weights = dict(w_lpips=0.0, w_pix=0.0, w_latent=0.001, w_disc=0.01)
+    alpha = 0.3
+    bundle_j = engine_j.make_bundle(_jnp(g_np), _jnp(d_np),
+                                    W_summary=losses_j.manifold_summary(jnp.asarray(W)))
+    fns_j = engine_j.make_walk_fns(g_cfg_j, d_cfg_j, n_modes=N_MODES, num_epochs=K, crop_size=8,
+                                   remat=False, soft_aug=True, alpha=alpha, **weights)
+    _, ws_j, _ = jax.jit(fns_j.walk)(bundle_j, jnp.asarray(w0), jnp.asarray((0, 0), jnp.int32),
+                                     jax.random.PRNGKey(0))
+    G = net_t.Generator(net_t.generator_config(z_dim=64, w_dim=64, num_mapping_layers=2, **cfg))
+    G.load_state_dict(ckpt_t.params_to_state_dict(g_np))
+    D = net_t.Discriminator(net_t.discriminator_config(**cfg))
+    D.load_state_dict(ckpt_t.params_to_state_dict(d_np))
+    bundle_t = engine_t.make_bundle(G.requires_grad_(False), D.requires_grad_(False),
+                                    W_summary=losses_t.manifold_summary(torch.from_numpy(W)))
+    ws = {}
+    for soft in (True, False):
+        fns = engine_t.make_walk_fns(G.cfg, n_modes=N_MODES, num_epochs=K, crop_size=8,
+                                     soft_aug=soft, alpha=alpha, **weights)
+        ws[soft] = fns.walk(bundle_t, torch.from_numpy(w0), (0, 0), torch.Generator())[1]
+    _close(ws[True], ws_j, rtol=0, atol=W_ATOL)
+    blend = alpha * ws[False][:, :1] + (1 - alpha) * torch.from_numpy(w0)
+    _close(ws[True][:, :1], blend, rtol=0, atol=1e-6)
+    assert (ws[False] - ws[True]).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("clip", [True, False], ids=["lower_bound_clip", "no_clip"])
+def test_lower_bound_clip_matches_jax(clip, tmp_path):
+    """Outputs under -1 are clipped to -1 with --lower_bound_clip, as in the
+    JAX policy (val phase: the input comes back, clipped)."""
+    argv = _BASE + _LATENT + ["--checkpoints_dir", str(tmp_path), "--phase", "val",
+                              "--load_size", "8"] + (["--lower_bound_clip"] if clip else [])
+    x = np.random.RandomState(4).uniform(-1.5, 1.0, (2, 1, 8, 8)).astype(np.float32)
+    data = {"A": x, "B": x * 0.5 - 0.8, "A_paths": ["a", "b"], "B_paths": ["a", "b"]}
+    outs = []
+    for options, create, extra in ((AugOptions_j, create_augment_j, []),
+                                   (AugOptions_t, create_augment_t, ["--device", "cpu"])):
+        aug = create(options().parse(argv=argv + extra, install_logger=False))
+        aug.set_input(data)
+        aug.forward()
+        outs.append(aug.get_output())
+    for k in ("A", "B"):
+        np.testing.assert_array_equal(outs[1][k], outs[0][k])
+        assert (outs[1][k].min() >= -1.0) == clip
