@@ -95,10 +95,37 @@ line.
      VGG16 with LPIPS heads through `vgg.convert_torchscript`: the taps on
      the card against the script module's (CONVERT_TOL).
 
+ 11. StyleGAN3-R (radial 2-D down filters, G twice D's widths): K2's
+     generic variant with its tap count at run time at the R plan's
+     largest layer (L10: the radial 12x12 filter at down 2 in float32 and
+     bfloat16, the 24-tap up filter at up 4), forward and backward against
+     the plain version, with bounds and, for the 2-D filter, the depthwise
+     F.conv2d; the R generator at 256x256 in float32, kernels against the
+     plain versions (image and gradient at ws); the policy walk over an
+     SG3-R checkpoint for 3 batches at the largest of SG3R_BATCHES that
+     fits without remat, K2 `generic` and the decomposed filtered_lrelu
+     (K1 and K2) launched, K3 on the critically sampled layers; then the
+     K2 cases at the batch the walk ran.
+ 12. The sweep drivers (scripts/torch_backbone_{latentaug,sg2aug,geoaug}.py)
+     on phase 3's workspace, 3 batches after the sanity check's: the
+     LatentAugment sweep's dumps complete and its launches per batch equal
+     to phase 3's, its mean wall beside phase 3's samples/s; the
+     random-GAN sweep's samples/s and launches; the geometric sweep's ms
+     per batch.
+ 13. scripts/torch_run_pipeline.py at 256x256 and the operating point's
+     widths: train (one warm-up step and one d_reg_interval at batch 32),
+     project (batch 16, PIPE_PROJECT_STEPS steps), walk and dump
+     PIPE_N_IMGS images at batch 32, FID and precision/recall per
+     modality, the PCA coverage plot and a GIF, each stage's seconds; then
+     one sg2_metrics_opt trial over phase 3's workspace. Cut from the
+     full-size loop: 25k kimg of training to 17 steps, 1000 projector
+     steps to PIPE_PROJECT_STEPS, 50k scored images to PIPE_N_IMGS,
+     50 tuning trials to 1.
+
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
-No launch of phases 5, 6, 8 and 9 may go through a kernel's `generic`
-variant. The last two lines of stdout are the kernels' JSON record and
+No launch of phases 5, 6, 8, 9, 12 and 13 may go through a kernel's
+`generic` variant; phase 11 must launch K2's. The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -144,6 +171,16 @@ STEP0_TOL = 1e-3  # a walk's step-0 losses from one engine to the next (bf16)
 TOL_GRAD_WALK = 1e-2
 W_SLIVER = 2e-2
 WIDTHS = dict(channel_base=32768, channel_max=512)  # the operating point's G and D
+# Phase 11, StyleGAN3-R: G twice as wide as D. The generator's float32
+# check at SG3R_G_BATCH (image within SG3R_TOL_IMG and its gradient at ws
+# within SG3R_TOL_GRAD of their max); the walk at the first of
+# SG3R_BATCHES that fits the card without remat, and K2's cases at the R
+# plan's largest layer at the walk's batch.
+SG3R_G_BATCH, SG3R_BATCHES = 2, (16, 8, 4)
+SG3R_TOL_IMG, SG3R_TOL_GRAD = 1e-4, 1e-3
+# Phase 13, the pipeline: images walked and scored, projector steps, and
+# the images of the one tuning trial.
+PIPE_N_IMGS, PIPE_PROJECT_STEPS, PIPE_TRIAL_IMGS = 512, 5, 64
 # Launch counts by kernel variant, by kernel name; main() fills it.
 VARIANT_COUNTERS = {}
 
@@ -234,7 +271,7 @@ def finish_record(rec, ms, records, extra=""):
         f"| bound {rec['bound_fwd_ms']:.3f} / {rec['bound_bwd_ms']:.3f} ms{lib}")
 
 
-def compare(name, fn, x, dy_seed, dtype_name, records, bounds, library=None):
+def compare(name, fn, x, dy_seed, dtype_name, records, bounds, library=None, tol_bwd=TOL_GRAD):
     """Kernel vs plain: values and dx, timed. `bounds` are the forward's and
     the backward's (bytes, multiply-adds); `library`, where one PyTorch
     call computes the same function, is that call as x -> y: it is timed
@@ -244,7 +281,7 @@ def compare(name, fn, x, dy_seed, dtype_name, records, bounds, library=None):
     ys, dxs, ms, dy = run_both(fn, x, dy_seed)
     rec = {"case": name, "dtype": dtype_name, "shape": list(x.shape)}
     check_close(rec, "fwd", ys["auto"], ys["ref"], TOL[dtype_name])
-    check_close(rec, "bwd", dxs["auto"], dxs["ref"], TOL_GRAD[dtype_name])
+    check_close(rec, "bwd", dxs["auto"], dxs["ref"], tol_bwd[dtype_name])
     set_bounds(rec, *bounds)
     rec["library_fwd_ms"] = rec["library_bwd_ms"] = None
     if library is not None:
@@ -520,21 +557,332 @@ def phase_small_reference(torch, benchmark, arch="stylegan2"):
     return {"trace_max_abs_diff": err, "w_max_abs_diff": (ws_g - ws_c).abs().max().item()}
 
 
+def phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev):
+    """K2 `generic` with its tap count at run time at the R plan's largest
+    layer: the radial 12x12 down filter (float32, bfloat16) and the 1-D up
+    filter, forward and backward against the plain version, with bounds
+    and, for the 2-D filter, the depthwise F.conv2d that computes the same."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = {f32: "float32", bf16: "bfloat16"}
+    g = torch.Generator(device=dev).manual_seed(11)
+    lo, hi = layer.padding
+    pad = (lo, hi, lo, hi)
+    c, n_in = layer.out_channels, layer.in_size
+    mid = (n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1))
+    cases = [
+        (f"{layer.name.split('_')[0]} radial fd {fd.shape[0]}x{fd.shape[1]} down "
+         f"{layer.down_factor}", [batch, c, mid, mid], fd, dict(down=layer.down_factor)),
+        (f"{layer.name.split('_')[0]} fu {fu.shape[0]} taps up {layer.up_factor}",
+         [batch, c, n_in, n_in], fu, dict(up=layer.up_factor, padding=pad,
+                                          gain=layer.up_factor ** 2)),
+    ]
+    recs = []
+    for name, shape, f, kw in cases:
+        for dtype in ((f32, bf16) if f.ndim == 2 else (bf16,)):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            library = None
+            if f.ndim == 2:
+                weight = f.flip([0, 1]).to(dtype)[None, None].repeat(shape[1], 1, 1, 1)
+
+                def library(x, weight=weight, stride=kw["down"]):
+                    return torch.nn.functional.conv2d(x, weight, stride=stride,
+                                                      groups=weight.shape[0])
+            wkw = dict(up=kw.get("up", 1), down=kw.get("down", 1), padding=kw.get("padding", 0))
+            wf = up.work(shape, tuple(f.shape), itemsize=x.element_size(), **wkw)
+            # The backward is K2 on dy with up and down swapped.
+            bpad = up.transposed_padding(shape, wf["out_shape"], up._get_filter_size(f),
+                                         (wkw["up"],) * 2, (wkw["down"],) * 2,
+                                         up._parse_padding(wkw["padding"]))
+            wb = up.work(wf["out_shape"], tuple(f.shape), up=wkw["down"], down=wkw["up"],
+                         padding=bpad, itemsize=x.element_size())
+            before = dict(up.variant_launches)
+            # The backward too within TOL: one FIR, rounded once either way.
+            rec = compare(name, lambda x, impl: up.upfirdn2d(x, f, impl=impl, **kw), x,
+                          300 + len(recs), names[dtype], recs,
+                          ((wf["bytes"], wf["macs"]), (wb["bytes"], wb["macs"])), library,
+                          tol_bwd=TOL)
+            used = {k for k in before if up.variant_launches[k] != before[k]}
+            if used != {"generic"}:
+                raise AssertionError(f"{name}: launched variants {used}, expected generic")
+            rec["variant"] = rec["bwd_variant"] = "generic"
+            rec["plan"] = up._plan(tuple(f.shape), (wkw["up"],) * 2, (wkw["down"],) * 2, (1, 1))
+            rec["kw"] = {k: list(v) if isinstance(v, tuple) else v for k, v in kw.items()}
+            del x
+            torch.cuda.empty_cache()
+    return recs
+
+
+def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
+    """StyleGAN3-R on the card: K2 `generic` at run-time taps, the R
+    generator at 256x256 with the kernels against the plain versions, and
+    the policy walk at the largest batch that fits without remat."""
+    log("phase 11: StyleGAN3-R (radial filters) on the card")
+    t0 = time.time()
+    g_cfg, _ = benchmark.make_gd_configs(RES, 2, num_fp16_res=0, arch="stylegan3",
+                                         **WIDTHS, **benchmark.SG3R)
+    radial = [layer for layer in g_cfg.layers if layer.down_radial]
+    layer = max(radial, key=lambda l: l.out_channels * (l.in_size * l.up_factor) ** 2)
+    fu, fd = (torch.as_tensor(f, device=dev) for f in net3._layer_filters(layer))
+
+    # The generator in float32, kernels against the plain versions: the
+    # image and its gradient with respect to ws.
+    G = net3.Generator(g_cfg, seed=21).to(dev).eval().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    z = torch.randn([SG3R_G_BATCH, g_cfg.z_dim], generator=gen, device=dev)
+    r = torch.randn([SG3R_G_BATCH, g_cfg.img_channels, RES, RES], generator=gen, device=dev)
+    with torch.no_grad():
+        ws0 = G.mapping(z)
+    out = {}
+    for impl in ("auto", "ref"):
+        net3.set_impl(G, impl)
+        reset_counters(counters)
+        fl.decomposed_calls.update(filtered_lrelu_decomposed=0)
+        ws = ws0.detach().requires_grad_(True)
+        img = G.synthesis(ws)
+        grad, = torch.autograd.grad((img * r).sum(), ws)
+        torch.cuda.synchronize()
+        out[impl] = (img.detach(), grad, read_counters(counters, f"SG3-R G ({impl})", [],
+                                                        generic_ok=("upfirdn2d",)),
+                     dict(fl.decomposed_calls))
+    (img_k, grad_k, (launches_k, variants_k), dec_k), (img_r, grad_r, (launches_r, _), _) = \
+        out["auto"], out["ref"]
+    if any(launches_r.values()):
+        raise AssertionError(f"SG3-R G with impl='ref' launched kernels: {launches_r}")
+    for k in ("bias_act_fwd", "bias_act_bwd", "upfirdn2d", "filtered_lrelu_fwd",
+              "filtered_lrelu_bwd"):
+        if launches_k[k] <= 0:
+            raise AssertionError(f"SG3-R G: kernel {k} was not launched: {launches_k}")
+    if variants_k["upfirdn2d"]["generic"] <= 0 or dec_k["filtered_lrelu_decomposed"] <= 0:
+        raise AssertionError(f"SG3-R G: no decomposed layer ran through K2 generic: "
+                             f"{variants_k}, {dec_k}")
+    g_rec = dict(batch=SG3R_G_BATCH, launches=launches_k, variant_launches=variants_k,
+                 decomposed_calls=dec_k,
+                 img_rel_err=rel_close(img_k, img_r, SG3R_TOL_IMG, "SG3-R G image, kernels vs plain"),
+                 grad_rel_err=rel_close(grad_k, grad_r, SG3R_TOL_GRAD,
+                                        "SG3-R G gradient at ws, kernels vs plain"))
+    log(f"  G at batch {SG3R_G_BATCH}, float32: image kernels vs plain {g_rec['img_rel_err']:.2e} "
+        f"(<= {SG3R_TOL_IMG}), gradient at ws {g_rec['grad_rel_err']:.2e} (<= {SG3R_TOL_GRAD}); "
+        f"launches {launches_k}, by variant {variants_k}, {dec_k}")
+    del G, img_k, img_r, grad_k, grad_r, out, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The policy walk over an SG3-R checkpoint (bf16 from layer 3 on, as
+    # phase 4), at the largest batch that fits without remat.
+    walk = None
+    for batch in SG3R_BATCHES:
+        root = os.path.join(REPO, "build", "chip_smoke_stylegan3r")
+        shutil.rmtree(root, ignore_errors=True)
+        argv = benchmark.build_policy_workspace(root, batch_size=batch, arch="stylegan3",
+                                                n_patients=-(-N_BATCHES * batch // 24),
+                                                **benchmark.SG3R)
+        fl.decomposed_calls.update(filtered_lrelu_decomposed=0)
+        got = run_policy_fits(torch, argv, counters)
+        if got is not None:
+            walk = (batch, argv, got, dict(fl.decomposed_calls))
+            break
+        log(f"  the SG3-R walk does not fit at batch {batch} without remat")
+    if walk is None:
+        raise AssertionError(f"the SG3-R walk fits none of the batches {SG3R_BATCHES}")
+    batch, argv, (batches, launches, setup_s, peak), dec = walk
+    check_batches(torch, np, batches, batch, "SG3-R")
+    launches, variants = read_counters(counters, "SG3-R walk",
+                                       [k for k in launches if k != "bias_act_bwd2"],
+                                       generic_ok=("upfirdn2d",))
+    if variants["upfirdn2d"]["generic"] <= 0 or dec["filtered_lrelu_decomposed"] <= 0:
+        raise AssertionError(f"SG3-R walk: no decomposed layer ran: {variants}, {dec}")
+    sps = samples_per_s(batches, batch)
+    walk_rec = dict(batch=batch, launches=launches, variant_launches=variants,
+                    decomposed_calls=dec, samples_per_s=sps, peak_mem_bytes=peak,
+                    batch_wall_s=[b["wall"] for b in batches], setup_s=setup_s, remat=False)
+    log(f"  policy walk at batch {batch} (no remat): batch walls "
+        f"{[round(b['wall'], 3) for b in batches]} s, {sps:.3f} samples/s over batches 2-3, "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}, by variant {variants}, "
+        f"{dec}")
+    shutil.rmtree(root, ignore_errors=True)
+    del batches, walk, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K2 at the largest radial layer, at the batch the walk gives it.
+    kernel_recs = phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev)
+    log(f"  phase 11 took {time.time() - t0:.1f} s")
+    return dict(kernels=kernel_recs, generator=g_rec, walk=walk_rec, layer=layer.name)
+
+
+def run_driver(torch, counters, main, argv, n_imgs, **over):
+    """A driver script's main at LATENTAUGMENT_N_IMGS = n_imgs with the
+    launch counters reset just before it and read just after; `over`
+    replaces entries of the module's sweep space for this run."""
+    space = sys.modules[main.__module__].params_space if over else {}
+    saved_env, saved_space = os.environ.get("LATENTAUGMENT_N_IMGS"), {}
+    os.environ["LATENTAUGMENT_N_IMGS"] = str(n_imgs)
+    for k, v in over.items():
+        saved_space[k] = space[k]
+        space[k] = [v]
+    try:
+        reset_counters(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = main(argv, install_logger=False)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        space.update(saved_space)
+        if saved_env is None:
+            os.environ.pop("LATENTAUGMENT_N_IMGS")
+        else:
+            os.environ["LATENTAUGMENT_N_IMGS"] = saved_env
+    return got, {k: v for c in counters for k, v in c.items()}, seconds
+
+
+def check_dumps(outdir, names):
+    """Every file `names` lists ({subdir: [file, ...]}) is there, and no other."""
+    for sub, files in names.items():
+        got = sorted(os.listdir(os.path.join(outdir, sub)))
+        if got != sorted(files):
+            raise AssertionError(f"{outdir}/{sub}: dumped {got}, expected {sorted(files)}")
+
+
+def phase_drivers(torch, counters, slice_rec):
+    """The sweep drivers (scripts/torch_backbone_*.py) on phase 3's
+    workspace: the LatentAugment sweep at phase 3's operating point (its
+    K=10 in place of the sweep space's 6, so both run one walk), the
+    random-GAN sweep and the geometric sweep, N_BATCHES batches each after
+    the sanity check's."""
+    from scripts import torch_backbone_geoaug, torch_backbone_latentaug, torch_backbone_sg2aug
+
+    log("phase 12: the sweep drivers on phase 3's workspace")
+    argv = slice_rec["argv"] + ["--device", "cuda"]
+    n_imgs = N_BATCHES * BATCH
+    names = {"img": [f"img_{i}" for i in range(N_BATCHES)],
+             "img_aug": [f"img_aug_{i}" for i in range(N_BATCHES)]}
+    (outdir, times), launches, seconds = run_driver(
+        torch, counters, torch_backbone_latentaug.main, argv + ["--name", "driver_latentaug"],
+        n_imgs, opt_num_epochs=10)
+    check_dumps(outdir, dict(names, latent=[f"w_{i}" for i in range(N_BATCHES)],
+                             latent_aug=[f"w_aug_{i}" for i in range(N_BATCHES)]))
+    # The sanity check's batch and N_BATCHES more: per batch, phase 3's launches.
+    walks = 1 + N_BATCHES
+    if {k: launches[k] * N_BATCHES for k in slice_rec["launches"]} != \
+            {k: v * walks for k, v in slice_rec["launches"].items()} or \
+            any(launches[k] for k in launches if k not in slice_rec["launches"]):
+        raise AssertionError(f"latentaug driver: launches {launches} over {walks} walks, phase 3 "
+                             f"{slice_rec['launches']} over {N_BATCHES}")
+    wall = statistics.mean(times[1:])
+    lat = dict(launches=launches, walks=walks, batch_wall_s=times, mean_wall_s=wall,
+               samples_per_s=BATCH / wall, seconds=seconds, outdir=outdir)
+    log(f"  latentaug: mean wall after the first batch {wall:.3f} s ({BATCH / wall:.3f} "
+        f"samples/s) beside phase 3's {slice_rec['kernel_samples_per_s']:.3f} samples/s; "
+        f"launches per batch {({k: v // walks for k, v in launches.items()})} = phase 3's")
+    shutil.rmtree(outdir)
+
+    runs, launches, seconds = run_driver(
+        torch, counters, torch_backbone_sg2aug.main,
+        argv + ["--rand_aug", "--name", "driver_sg2aug"], n_imgs)
+    (outdir, times), = runs
+    check_dumps(outdir, dict(names, latent=[], latent_aug=[f"w_aug_{i}" for i in range(N_BATCHES)]))
+    for k in ("bias_act_fwd", "upfirdn2d"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sg2aug driver: kernel {k} was not launched: {launches}")
+    wall = statistics.mean(times[1:])
+    sg2 = dict(launches=launches, batch_wall_s=times, mean_wall_s=wall,
+               samples_per_s=BATCH / wall, seconds=seconds)
+    log(f"  sg2aug (ganrand, psi 1): {wall * 1e3:.1f} ms per batch of {BATCH}, "
+        f"{BATCH / wall:.1f} samples/s; launches {launches}")
+    shutil.rmtree(outdir)
+
+    geo_argv = ["--dataroot", slice_rec["argv"][slice_rec["argv"].index("--dataroot") + 1],
+                "--checkpoints_dir", os.path.join(REPO, "build", "chip_smoke_geoaug"),
+                "--dataset_mode", "pelvis", "--load_size", str(RES), "--batch_size", str(BATCH),
+                "--aug", "geometric", "--device", "cuda", "--name", "driver_geoaug"]
+    (outdir, times), _, seconds = run_driver(torch, counters, torch_backbone_geoaug.main,
+                                             geo_argv, n_imgs)
+    check_dumps(outdir, names)
+    wall = statistics.mean(times[1:])
+    geo = dict(batch_wall_s=times, mean_wall_s=wall, seconds=seconds)
+    log(f"  geoaug (flip, affine, elastic): {wall * 1e3:.2f} ms per batch of {BATCH}")
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_geoaug"))
+    return dict(latentaug=lat, sg2aug=sg2, geoaug=geo)
+
+
+def phase_pipeline(torch, counters, slice_rec):
+    """scripts/torch_run_pipeline.py at full width (SG2 at 256x256, channel
+    base 32768): train one warm-up step and one d_reg_interval at batch 32,
+    project the synthetic split (batch 16, PIPE_PROJECT_STEPS steps), walk
+    and dump PIPE_N_IMGS images at batch 32 (K=10), FID and precision/recall
+    per modality, the PCA coverage plot and the GIFs; then one
+    sg2_metrics_opt trial on phase 3's workspace."""
+    from latentaugment_tpu_torch.analysis import hpo, sg2_metrics_opt
+    from scripts import torch_run_pipeline
+
+    log("phase 13: the one-command pipeline at 256x256")
+    reset_counters(counters)
+    train_steps = 17
+    outdir, results, seconds = torch_run_pipeline.main([
+        "--synthetic", "--res", str(RES), "--channel_base", str(WIDTHS["channel_base"]),
+        "--channel_max", str(WIDTHS["channel_max"]), "--n_imgs", str(PIPE_N_IMGS),
+        "--train", "--train_kimg", str(train_steps * BATCH / 1000), "--train_batch", str(BATCH),
+        "--project", "--project_steps", str(PIPE_PROJECT_STEPS), "--project_batch",
+        str(PROJ_BATCH), "--batch_size", str(BATCH), "--opt_num_epochs", "10",
+        "--w_lpips", "10", "--device", "cuda"])
+    launches = {k: v for c in counters for k, v in c.items()}
+    for k in ("bias_act_fwd", "bias_act_bwd", "bias_act_bwd2", "upfirdn2d"):
+        if launches[k] <= 0:
+            raise AssertionError(f"pipeline: kernel {k} was not launched: {launches}")
+    if any(c["generic"] for c in VARIANT_COUNTERS.values()):
+        raise AssertionError(f"pipeline: a generic launch: {VARIANT_COUNTERS}")
+    if len(results) != 4 or not all(math.isfinite(v) for _, _, r in results for v in r.values()):
+        raise AssertionError(f"pipeline: metric results {results}")
+    gifs = [f for f in os.listdir(outdir) if f.endswith(".gif")]
+    for f in ("pipeline_metrics.json", "umap_coverage.png"):
+        if not os.path.isfile(os.path.join(outdir, f)):
+            raise AssertionError(f"pipeline: {f} missing under {outdir}")
+    if not gifs or len(os.listdir(os.path.join(outdir, "img_aug"))) != PIPE_N_IMGS // BATCH:
+        raise AssertionError(f"pipeline: gifs {gifs}, dumps "
+                             f"{os.listdir(os.path.join(outdir, 'img_aug'))}")
+    log(f"  stage seconds {({k: round(v, 2) for k, v in seconds.items()})}; metrics "
+        f"{results}; launches {launches}")
+    shutil.rmtree(os.path.dirname(os.path.dirname(outdir)))
+
+    # One tuning trial, objective_recall's: dump PIPE_TRIAL_IMGS walked
+    # images and score their recall. Precision/recall only: the pipeline
+    # above scored FID, whose 2048x2048 matrix root takes the host 10-30 s.
+    argv = slice_rec["argv"] + ["--device", "cuda"]
+    study = hpo.create_study(directions=["maximize"], seed=0)
+
+    def objective(trial):
+        opt = sg2_metrics_opt.dump_imgs(trial, n_imgs=PIPE_TRIAL_IMGS, argv=argv)
+        return sg2_metrics_opt.calc_pr(opt, metrics_name=["pr50k3_full"], eval_split="train")[1]
+
+    t0 = time.time()
+    study.optimize(objective, n_trials=1)
+    trial = study.trials[0]
+    if trial["state"] != "COMPLETE" or not 0.0 <= trial["value"] <= 1.0:
+        raise AssertionError(f"sg2_metrics_opt trial: {trial}")
+    trial_s = time.time() - t0
+    log(f"  one sg2_metrics_opt trial ({PIPE_TRIAL_IMGS} images): recall {trial['value']:.4f}, "
+        f"params {trial['params']}, {trial_s:.1f} s")
+    return dict(stage_seconds=seconds, metrics=results, launches=launches,
+                trial=dict(trial, seconds=trial_s))
+
+
 def reset_counters(counters):
     for c in (*counters, *VARIANT_COUNTERS.values()):
         c.update(dict.fromkeys(c, 0))
 
 
-def read_counters(counters, label, need):
+def read_counters(counters, label, need, generic_ok=()):
     """(launches by kernel, by variant) since reset_counters. Every kernel
-    named in `need` must have been launched, none through `generic`."""
+    named in `need` must have been launched, none through `generic` but
+    those named in `generic_ok` (StyleGAN3-R's 2-D filters run K2 there)."""
     launches = {k: v for c in counters for k, v in c.items()}
     variants = {name: dict(c) for name, c in VARIANT_COUNTERS.items()}
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {label} path")
     for name, c in variants.items():
-        if c["generic"] != 0:
+        if c["generic"] != 0 and name not in generic_ok:
             raise AssertionError(f"{label}: {c['generic']} launches of {name} went through its "
                                  f"generic variant: {c}")
     return launches, variants
@@ -1705,12 +2053,17 @@ def main():
                                 slice_rec, dev)
     train_rec = phase_train(torch, np, all_counters, [*ba.launches, *up.launches], dev)
     convert_rec = phase_convert(torch, np, all_counters, slice_rec, sg3_rec, dev)
+    sg3r_rec = phase_sg3r(torch, np, benchmark, net3, up, fl, all_counters, dev)
+    drivers_rec = phase_drivers(torch, all_counters, slice_rec)
+    pipeline_rec = phase_pipeline(torch, all_counters, slice_rec)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
              "metrics": metrics_rec, "train": train_rec,
              "walk_nvidia_pickle": convert_rec["nvidia_pickle"],
              "walk_conditional": convert_rec["conditional"],
-             "stylegan3_pickle": convert_rec["stylegan3_pickle"]}
+             "stylegan3_pickle": convert_rec["stylegan3_pickle"],
+             "walk_stylegan3r": sg3r_rec["walk"], "driver_latentaug": drivers_rec["latentaug"],
+             "driver_sg2aug": drivers_rec["sg2aug"], "pipeline": pipeline_rec}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -1718,6 +2071,8 @@ def main():
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
     fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
+    r_recs = sg3r_rec["kernels"]
+    r_main = next(r for r in r_recs if "radial" in r["case"] and r["dtype"] == "bfloat16")
     def entry(name, route, source, replaces, launches, recs, main, direction, variant):
         """One kernel of the `kernels` line: times, bound and library time
         are the main-path case's (`main`), the error the worst of `recs`."""
@@ -1748,6 +2103,16 @@ def main():
               sg3_rec["launches"]["filtered_lrelu_fwd"], fl_recs, fl_main, "fwd", "u4t24_d2t12"),
         entry("filtered_lrelu_bwd", "cuda", fl_src, fl_tpu,
               sg3_rec["launches"]["filtered_lrelu_bwd"], fl_recs, fl_main, "bwd", "u2t12_d4t24"),
+        # K2's generic variant with run-time taps, StyleGAN3-R's radial
+        # filters: launches are the SG3-R walk's generic ones.
+        dict(entry("upfirdn2d_generic", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
+                   "latentaugment_tpu/ops/upfirdn2d.py:564",
+                   sg3r_rec["walk"]["variant_launches"]["upfirdn2d"]["generic"], r_recs, r_main,
+                   "fwd+bwd", "generic"),
+             case="generic 2-D (run-time taps): " + r_main["case"],
+             launches_by_path={"walk_stylegan3r": sg3r_rec["walk"]["variant_launches"]
+                               ["upfirdn2d"]["generic"]},
+             decomposed_calls=sg3r_rec["walk"]["decomposed_calls"]),
     ]
 
     out_dir = os.path.join(REPO, "chiprun_out")
@@ -1758,7 +2123,8 @@ def main():
                    "second_order": second_recs, "train": train_rec,
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
                    "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
-                   "metrics": metrics_rec, "convert": convert_rec, "kernels": kernels}, f,
+                   "metrics": metrics_rec, "convert": convert_rec, "sg3r": sg3r_rec,
+                   "drivers": drivers_rec, "pipeline": pipeline_rec, "kernels": kernels}, f,
                   indent=1)
 
     log(smi)

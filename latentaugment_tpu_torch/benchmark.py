@@ -10,7 +10,8 @@
 
 `arch` picks the generator: "stylegan2" (default) or "stylegan3" (the
 alias-free SG3-T, whose generator_config takes further keyword
-overrides through **g_over); D is always the StyleGAN2 one. `c_dim` > 0
+overrides through **g_over; `SG3R` holds those of StyleGAN3-R, whose G
+is twice as wide as D); D is always the StyleGAN2 one. `c_dim` > 0
 builds a conditional pair (label-embedding mapping, projection D), whose
 walk takes labels.
 
@@ -34,15 +35,22 @@ from .models import networks_for, vgg
 from .models.stylegan2 import checkpoint, networks
 
 MODALITIES = ["MR_nonrigid_CT", "MR_MR_T2"]
+# StyleGAN3-R (arch="stylegan3"): 1x1 convs, radial down filters, and G's
+# channel_base / channel_max at twice D's
+# (latentaugment_tpu/models/stylegan3/networks.py:57-59).
+SG3R = dict(use_radial_filters=True, conv_kernel=1, g_width_factor=2)
 
 
 def make_gd_configs(res, img_channels, channel_base, channel_max, num_fp16_res,
-                    mbstd_group_size=4, c_dim=0, arch="stylegan2", **g_over):
-    """The operating point's G/D configs; bf16 only from 64x64 up."""
+                    mbstd_group_size=4, c_dim=0, arch="stylegan2", g_width_factor=1,
+                    **g_over):
+    """The operating point's G/D configs; bf16 only from 64x64 up. G's
+    widths are D's times `g_width_factor`."""
     n16 = num_fp16_res if res >= 64 else 0
     g_cfg = networks_for({"arch": arch}).generator_config(
         c_dim=c_dim, img_resolution=res, img_channels=img_channels,
-        channel_base=channel_base, channel_max=channel_max, num_fp16_res=n16, **g_over)
+        channel_base=channel_base * g_width_factor, channel_max=channel_max * g_width_factor,
+        num_fp16_res=n16, **g_over)
     d_cfg = networks.discriminator_config(
         c_dim=c_dim, img_resolution=res, img_channels=img_channels, channel_base=channel_base,
         channel_max=channel_max, mbstd_group_size=mbstd_group_size, num_fp16_res=n16)

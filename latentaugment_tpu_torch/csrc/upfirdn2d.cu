@@ -14,7 +14,9 @@
 // floor here is instructions: scalar 2-byte global loads behind bounds
 // tests, one per tap and output, run an order of magnitude above it;
 // so the separable kernel stages each input once, tests bounds only
-// there, and filters from shared memory in registers.
+// there, and filters from shared memory in registers. StyleGAN3-R's
+// radial 12x12 down filter is the exception: 144 multiply-adds per
+// output at down 2 put it over the fp32 line, so operations bound it.
 //
 // Two kernels, chosen by the plan in ops/upfirdn2d.py (the launchers
 // refuse a plan that does not fit them):
@@ -38,19 +40,28 @@
 //    (1,1) 32x128, 37 KB; (1,2) 32x64, 52 KB; (2,1) 32x128, 14 KB;
 //    smaller maps take a tile cut to their size. Blocks loop over planes
 //    in z.
-//  * `upfirdn2d_kernel<T>`, the generic kernel, for 2-D filters, other
-//    rates and fewer taps: one thread per output pixel, at most 4 taps
-//    per axis, the zero insertion folded into the indexing (a tap touches
-//    canvas row u only when (u - pad0) % up == 0, so the loops start at
-//    the first such tap and step by `up`), taps in shared memory.
+//  * `upfirdn2d_kernel<MAXT, T>`, the generic kernel, for 2-D filters,
+//    other rates and other tap counts: one thread per output pixel, the
+//    zero insertion folded into the indexing (a tap touches canvas row u
+//    only when (u - pad0) % up == 0, so the loops start at the first such
+//    tap and step by `up`), taps in shared memory. Two instantiations:
+//    MAXT = 4 (at most 4 taps per axis, both tap loops unrolled) and
+//    MAXT = 0, whose tap count is a run-time parameter (at most
+//    UPFIRDN2D_MAX_DYN_TAPS per axis; fw * fh floats of dynamic shared
+//    memory, read from device memory once per block, loops over the live
+//    taps only). The second takes StyleGAN3-R's layers on the decomposed
+//    filtered_lrelu: the 1-D 12- and 24-tap up filters and the radial
+//    12x12 down filter, and their backwards.
 //
 // C interface for ctypes; each launcher returns the CUDA error of the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
 
 #include "common.cuh"
 
-// Taps per axis; the launchers refuse larger filters.
+// Taps per axis of the unrolled instantiations and of the run-time one;
+// the launchers refuse larger filters.
 #define UPFIRDN2D_MAX_TAPS 4
+#define UPFIRDN2D_MAX_DYN_TAPS 64
 #define UPFIRDN2D_THREADS 256
 #define UPFIRDN2D_MAX_SMEM_BYTES 232448
 
@@ -260,14 +271,15 @@ struct Upfirdn2dParams {
 };
 
 // One thread per output pixel, a 32x8 block over a 32x8 tile of outputs,
-// blockIdx.z over the planes. At most UPFIRDN2D_MAX_TAPS live taps per
-// axis, known at compile time, so both tap loops unroll and every load of
-// a window is issued before the first multiply-add (out-of-range taps are
-// predicated off).
-template <typename T>
+// blockIdx.z over the planes. MAXT > 0: at most MAXT live taps per axis,
+// known at compile time, so both tap loops unroll and every load of a
+// window is issued before the first multiply-add (out-of-range taps are
+// predicated off). MAXT == 0: the live taps are counted at run time and
+// the loops skip rows and columns outside the image.
+template <int MAXT, typename T>
 __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
                                  const float* __restrict__ f, const Upfirdn2dParams p) {
-    extern __shared__ float4 smem4[];  // UPFIRDN2D_MAX_TAPS^2 floats
+    extern __shared__ float4 smem4[];  // the filter: fw (separable) or fw * fh floats
     float* taps = reinterpret_cast<float*>(smem4);
     const int nf = p.separable ? p.fw : p.fw * p.fh;
     const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -300,37 +312,58 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
     for (long long plane = blockIdx.z; plane < p.planes; plane += gridDim.z) {
         const T* xp = x + plane * in_plane;
         float acc = 0.f;
+        if constexpr (MAXT > 0) {
 #pragma unroll
-        for (int ky = 0; ky < UPFIRDN2D_MAX_TAPS; ++ky) {
-            const int iy = iy0 + ky;
-            const bool row_ok = ky < nty && iy >= 0 && iy < p.in_h;
-            const int a = a0 + ky * p.upy;
-            float racc = 0.f;
+            for (int ky = 0; ky < MAXT; ++ky) {
+                const int iy = iy0 + ky;
+                const bool row_ok = ky < nty && iy >= 0 && iy < p.in_h;
+                const int a = a0 + ky * p.upy;
+                float racc = 0.f;
 #pragma unroll
-            for (int kx = 0; kx < UPFIRDN2D_MAX_TAPS; ++kx) {
-                const int ix = ix0 + kx;
-                const int b = b0 + kx * p.upx;
-                if (row_ok && kx < ntx && ix >= 0 && ix < p.in_w)
-                    racc += (p.separable ? taps[b] : taps[a * p.fw + b])
-                            * load_f32(xp + (long long)iy * p.in_w + ix);
+                for (int kx = 0; kx < MAXT; ++kx) {
+                    const int ix = ix0 + kx;
+                    const int b = b0 + kx * p.upx;
+                    if (row_ok && kx < ntx && ix >= 0 && ix < p.in_w)
+                        racc += (p.separable ? taps[b] : taps[a * p.fw + b])
+                                * load_f32(xp + (long long)iy * p.in_w + ix);
+                }
+                if (row_ok)
+                    acc += p.separable ? taps[a] * racc : racc;
             }
-            if (row_ok)
+        } else {
+            // Only the taps whose input lies inside the image.
+            const int ky0 = iy0 < 0 ? -iy0 : 0;
+            const int ky1 = nty < p.in_h - iy0 ? nty : p.in_h - iy0;
+            const int kx0 = ix0 < 0 ? -ix0 : 0;
+            const int kx1 = ntx < p.in_w - ix0 ? ntx : p.in_w - ix0;
+            for (int ky = ky0; ky < ky1; ++ky) {
+                const int a = a0 + ky * p.upy;
+                const T* row = xp + (long long)(iy0 + ky) * p.in_w + ix0;
+                const float* trow = p.separable ? taps : taps + a * p.fw;
+                float racc = 0.f;
+                for (int kx = kx0; kx < kx1; ++kx)
+                    racc += trow[b0 + kx * p.upx] * load_f32(row + kx);
                 acc += p.separable ? taps[a] * racc : racc;
+            }
         }
         store(y + plane * out_plane + (long long)oy * p.out_w + ox, acc * p.gain);
     }
 }
 
+// The filter's size picks the instantiation: the unrolled one when it has
+// at most UPFIRDN2D_MAX_TAPS taps on both axes, else the run-time one, up
+// to UPFIRDN2D_MAX_DYN_TAPS.
 extern "C" int upfirdn2d_launch(const void* x, void* y, const void* f, int dtype,
                                 long long planes, int in_h, int in_w, int out_h, int out_w,
                                 int upx, int upy, int downx, int downy, int padx0, int pady0,
                                 int fw, int fh, int separable, int flip, float gain,
                                 void* stream) {
-    if (fw < 1 || fh < 1 || fw > UPFIRDN2D_MAX_TAPS || fh > UPFIRDN2D_MAX_TAPS ||
+    if (fw < 1 || fh < 1 || fw > UPFIRDN2D_MAX_DYN_TAPS || fh > UPFIRDN2D_MAX_DYN_TAPS ||
         (separable && fw != fh) ||
         upx < 1 || upy < 1 || downx < 1 || downy < 1 || planes < 0 ||
         in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
+    const bool dynamic = fw > UPFIRDN2D_MAX_TAPS || fh > UPFIRDN2D_MAX_TAPS;
     Upfirdn2dParams p;
     p.planes = planes;
     p.in_h = in_h; p.in_w = in_w; p.out_h = out_h; p.out_w = out_w;
@@ -345,10 +378,19 @@ extern "C" int upfirdn2d_launch(const void* x, void* y, const void* f, int dtype
                     (unsigned)(planes < 65535 ? planes : 65535));
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const size_t smem = sizeof(float) * UPFIRDN2D_MAX_TAPS * UPFIRDN2D_MAX_TAPS;
+    const size_t smem = sizeof(float) * (dynamic ? (size_t)(separable ? fw : fw * fh)
+                                                 : UPFIRDN2D_MAX_TAPS * UPFIRDN2D_MAX_TAPS);
+    if (dynamic) {
+        if (dtype == 0)
+            return (int)launch_kernel(upfirdn2d_kernel<0, float>, grid, block, smem, s,
+                                      (const float*)x, (float*)y, (const float*)f, p);
+        return (int)launch_kernel(upfirdn2d_kernel<0, __nv_bfloat16>, grid, block, smem, s,
+                                  (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const float*)f, p);
+    }
     if (dtype == 0)
-        return (int)launch_kernel(upfirdn2d_kernel<float>, grid, block, smem, s, (const float*)x,
-                                  (float*)y, (const float*)f, p);
-    return (int)launch_kernel(upfirdn2d_kernel<__nv_bfloat16>, grid, block, smem, s,
-                              (const __nv_bfloat16*)x, (__nv_bfloat16*)y, (const float*)f, p);
+        return (int)launch_kernel(upfirdn2d_kernel<UPFIRDN2D_MAX_TAPS, float>, grid, block, smem,
+                                  s, (const float*)x, (float*)y, (const float*)f, p);
+    return (int)launch_kernel(upfirdn2d_kernel<UPFIRDN2D_MAX_TAPS, __nv_bfloat16>, grid, block,
+                              smem, s, (const __nv_bfloat16*)x, (__nv_bfloat16*)y,
+                              (const float*)f, p);
 }

@@ -46,8 +46,10 @@ def generator_config(z_dim=512, c_dim=0, w_dim=512, img_resolution=256,
                      use_radial_filters=False):
     """Alias-free generator config; the default is the translation-
     equivariant ('-t') variant. The rotation-equivariant ('-r') variant
-    (conv_kernel=1, use_radial_filters=True) has 2-D filters, which only
-    the plain version of filtered_lrelu takes."""
+    (conv_kernel=1, use_radial_filters=True, channel_base and channel_max
+    doubled) has 2-D down filters in its layers that are not critically
+    sampled; on the card filtered_lrelu runs those layers through kernels
+    K1 and K2 (the decomposed form), the others through K3."""
     if embed_features is None:
         embed_features = w_dim if c_dim > 0 else 0
     cfg = EasyDict(arch='stylegan3', z_dim=z_dim, c_dim=c_dim, w_dim=w_dim,

@@ -8,19 +8,26 @@ Two implementations sit side by side:
 
   * `_filtered_lrelu_ref`: plain PyTorch, the decomposed form of the JAX
     package (filtered_lrelu.py:126-131, :185-192) built from the port's
-    own `bias_act` and `upfirdn2d` with impl='ref' on every inner call
-    (with 'auto' a CUDA tensor would reach kernel K2, which takes at most
-    4 taps); autograd gives its gradient. It runs for CPU tensors and
-    for `impl='ref'`, and takes 1-D and 2-D filters.
+    own `bias_act` and `upfirdn2d` with impl='ref' on every inner call;
+    autograd gives its gradient. It runs for CPU tensors and for
+    `impl='ref'`, and takes 1-D and 2-D filters.
+  * the same decomposed form with impl='auto' on the inner calls, for a
+    CUDA tensor and a 2-D `fu` or `fd` (the radial filters of StyleGAN3-R's
+    layers that are not critically sampled): kernel K1 for the two
+    bias_act steps and kernel K2 for the two FIRs, K2's `generic` variant
+    with its tap count at run time. The JAX package makes the same choice
+    at the same place, from the filters' rank alone (`_fused_geometry`
+    returns None for a non-separable filter, filtered_lrelu.py:143-145).
+    `decomposed_calls['filtered_lrelu_decomposed']` counts these calls.
   * kernel K3, `csrc/filtered_lrelu.cu`, hand-written CUDA for sm_90a,
     built with nvcc at first use and called through ctypes, behind
     `_FilteredLReluFunction`. One launch does the whole op for a tile of
     outputs with the up-rate canvas in shared memory; the backward is
     the same kernel in its second mode, reading the sign/clamp record
     the forward writes when autograd needs it. It runs for every CUDA
-    tensor unless `impl='ref'`; there is no fallback on the card. It
-    takes 1-D (separable) filters and raises for 2-D ones (the radial
-    SG3-R filters) and for filters that require grad.
+    tensor with 1-D filters unless `impl='ref'`; there is no fallback on
+    the card. It takes 1-D (separable) filters and raises for 2-D ones
+    when handed them directly, and for filters that require grad.
 
 The record holds 2 bits per up-rate pixel (bit 0: not positive, bit 1:
 clamped), four pixels of a row per byte: [planes, mid_h, ceil(mid_w/4)]
@@ -50,8 +57,10 @@ from .bias_act import bias_act
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
 # Launches of kernel K3, counted where launched, by direction and by the
-# plan's variant (both directions together).
+# plan's variant (both directions together); and the calls on a CUDA
+# tensor that took the decomposed form through K1 and K2 (2-D filters).
 launches = {'filtered_lrelu_fwd': 0, 'filtered_lrelu_bwd': 0}
+decomposed_calls = {'filtered_lrelu_decomposed': 0}
 variant_launches = {'u2t12_d2t12': 0, 'u4t24_d2t12': 0, 'u2t12_d4t24': 0,
                     'u1t1_d1t1': 0, 'generic': 0}
 
@@ -83,25 +92,34 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
     if b is not None and (b.ndim != 1 or b.shape[0] != x.shape[1]):
         raise ValueError(f"bias shape {tuple(b.shape)} does not match "
                          f"{x.shape[1]} channels")
-    if impl == 'ref' or x.device.type == 'cpu':
+    route = _route(x.device, fu, fd, impl)
+    if route == 'ref':
         return _filtered_lrelu_ref(x, fu, fd, b, up, down, padding, gain, slope,
                                    clamp, flip_filter)
-    if x.device.type != 'cuda':
-        raise NotImplementedError(f"filtered_lrelu has no kernel for {x.device}")
-    for name, f in (('fu', fu), ('fd', fd)):
-        if f is None:
-            continue
-        if f.ndim != 1:
-            raise NotImplementedError(
-                f"kernel K3 takes 1-D (separable) filters, got a {f.ndim}-D {name}; "
-                "use impl='ref' for the radial (2-D) filters")
-        if f.requires_grad:
+    if route == 'decomposed':
+        decomposed_calls['filtered_lrelu_decomposed'] += 1
+        return _decomposed(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter,
+                           impl='auto')
+    for f in (fu, fd):
+        if f is not None and f.requires_grad:
             raise ValueError("kernel K3 treats the filters as constants; "
                              "use impl='ref' to differentiate w.r.t. them")
     need_record = torch.is_grad_enabled() and (
         x.requires_grad or (b is not None and b.requires_grad))
     return _FilteredLReluFunction.apply(x, fu, fd, b, up, down, padding, gain, slope,
                                         clamp, bool(flip_filter), need_record)
+
+
+def _route(device, fu, fd, impl):
+    """Which form runs, from the device, the filters' rank and `impl`
+    alone, before any launch: 'ref' (the plain version: CPU tensors or
+    impl='ref'), 'decomposed' (a CUDA tensor and a 2-D filter: K1 and K2)
+    or 'k3' (a CUDA tensor and 1-D filters)."""
+    if impl == 'ref' or device.type == 'cpu':
+        return 'ref'
+    if device.type != 'cuda':
+        raise NotImplementedError(f"filtered_lrelu has no kernel for {device}")
+    return 'decomposed' if any(f is not None and f.ndim == 2 for f in (fu, fd)) else 'k3'
 
 
 def _output_size(in_h, in_w, fu, fd, up, down, padding):
@@ -118,17 +136,23 @@ def _output_size(in_h, in_w, fu, fd, up, down, padding):
 
 def _filtered_lrelu_ref(x, fu, fd, b, up, down, padding, gain, slope, clamp,
                         flip_filter):
-    """The decomposed form: bias, up-FIR (gain up^2), lrelu*gain + clamp,
-    down-FIR, each through the plain versions."""
+    """The decomposed form through the plain versions."""
+    return _decomposed(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter,
+                       impl='ref')
+
+
+def _decomposed(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter, impl):
+    """bias, up-FIR (gain up^2), lrelu*gain + clamp, down-FIR, each a
+    bias_act or upfirdn2d call with `impl` (JAX: filtered_lrelu.py:185-192)."""
     batch, channels, in_h, in_w = x.shape
     mid_h, mid_w, out_h, out_w = _output_size(in_h, in_w, fu, fd, up, down, padding)
     if min(mid_h, mid_w, out_h, out_w) <= 0:
         raise ValueError("padded image is smaller than the filters")
-    x = bias_act(x, b, impl='ref')
+    x = bias_act(x, b, impl=impl)
     x = upfirdn2d(x, fu, up=up, padding=list(padding), gain=up ** 2,
-                  flip_filter=flip_filter, impl='ref')
-    x = bias_act(x, act='lrelu', alpha=slope, gain=gain, clamp=clamp, impl='ref')
-    x = upfirdn2d(x, fd, down=down, flip_filter=flip_filter, impl='ref')
+                  flip_filter=flip_filter, impl=impl)
+    x = bias_act(x, act='lrelu', alpha=slope, gain=gain, clamp=clamp, impl=impl)
+    x = upfirdn2d(x, fd, down=down, flip_filter=flip_filter, impl=impl)
     if tuple(x.shape) != (batch, channels, out_h, out_w):
         raise RuntimeError(f"filtered_lrelu shape {tuple(x.shape)} != "
                            f"{(batch, channels, out_h, out_w)}")
@@ -211,7 +235,14 @@ def _geometry(in_hw, tu, td, up, down, padding, backward):
 
 
 def _stage_params(in_hw, fu, fd, up, down, padding, flip_filter, backward):
-    """`_geometry` with the filters of each stage and their flips."""
+    """`_geometry` with the filters of each stage and their flips. K3
+    takes 1-D filters only: `filtered_lrelu` sends 2-D ones to the
+    decomposed form before it gets here."""
+    for name, f in (('fu', fu), ('fd', fd)):
+        if f is not None and f.ndim != 1:
+            raise NotImplementedError(
+                f"kernel K3 takes 1-D (separable) filters, got a {f.ndim}-D {name}; "
+                "filtered_lrelu takes 2-D filters through kernels K1 and K2")
     tu, td = _get_filter_size(fu)[0], _get_filter_size(fd)[0]
     sp = _geometry(in_hw, tu, td, up, down, padding, backward)
     f1, f2 = (fd, fu) if backward else (fu, fd)

@@ -13,18 +13,22 @@ Two implementations sit side by side:
     VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614), and is itself
     differentiable, so second derivatives launch K2 too. It runs for
     every CUDA tensor unless `impl='ref'`; there is no fallback on the
-    card. It takes filters of at most 4 taps per axis (StyleGAN2's
-    [1, 3, 3, 1]) and raises for larger ones.
+    card. It takes filters of up to 64 taps per axis, 1-D or 2-D, and
+    raises for larger ones.
 
 K2 is bound by bytes (`work` counts them). `_plan` picks, from the
 geometry alone, one of the kernel's variants and its tile: `u1d1`, `u1d2`
 and `u2d1` (the separable 4-tap filter at the three rate pairs of the
 StyleGAN2 walk and its backward: a staged shared-memory tile, two
 register-blocked 1-D passes, taps as kernel parameters) or `generic`
-(2-D filters, other rates, fewer taps: one thread per output). The
-launcher refuses a plan that does not fit its variant, and nothing
-retries through another one. `variant_launches` counts launches by
-variant. The header of the .cu file says what bounds it and how.
+(2-D filters, other rates, other tap counts: one thread per output),
+which has two instantiations: tap loops unrolled for at most 4 taps per
+axis, and a tap count known only at run time for up to 64 (StyleGAN3-R's
+12- and 24-tap up filters and radial 12x12 down filter, on the
+decomposed filtered_lrelu). The launcher refuses a plan that does not
+fit its variant, and nothing retries through another one.
+`variant_launches` counts launches by variant. The header of the .cu
+file says what bounds it and how.
 """
 
 import ctypes
@@ -187,7 +191,7 @@ def _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain):
 # Kernel K2 (CUDA C++, csrc/upfirdn2d.cu).
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_TAPS = 4  # per axis; UPFIRDN2D_MAX_TAPS in the .cu file
+_MAX_TAPS = 64  # per axis, of `generic`; UPFIRDN2D_MAX_TAPS in the .cu file
 _MAX_SMEM_BYTES = 232448  # 227 KB, the most a block can take
 # Output tile (rows, columns) of the separable variants on a large map.
 _SEP4_TILES = {'u1d1': (32, 128), 'u1d2': (32, 64), 'u2d1': (32, 128)}
@@ -221,12 +225,18 @@ def _sep4_smem_bytes(up, down, toh, tow):
 def _plan(f_shape, up, down, out_hw):
     """The kernel variant and tile for a filter of shape `f_shape`, rate
     pairs `up` and `down` (x, y) and an output of `out_hw`: a dict with
-    'variant' and, for the separable variants, the output tile
-    ('toh', 'tow') and its shared memory ('smem')."""
+    'variant' and, for the separable variants, the output tile ('toh',
+    'tow') and its shared memory ('smem'). `generic` takes up to
+    _MAX_TAPS taps per axis (its launcher picks the unrolled
+    instantiation for 4 or fewer); a larger filter raises."""
     sep4 = tuple(f_shape) == (4,) and up[0] == up[1] and down[0] == down[1]
     variant = {(1, 1): 'u1d1', (1, 2): 'u1d2', (2, 1): 'u2d1'}.get((up[0], down[0])) \
         if sep4 else None
     if variant is None:
+        fw, fh = (f_shape[0], f_shape[0]) if len(f_shape) == 1 else (f_shape[1], f_shape[0])
+        if max(fw, fh) > _MAX_TAPS:
+            raise NotImplementedError(f"kernel K2 takes at most {_MAX_TAPS} taps per axis, "
+                                      f"got a {fh}x{fw} filter; use impl='ref'")
         return dict(variant='generic')
     toh, tow = _SEP4_TILES[variant]
     toh, tow = min(toh, _round_up(out_hw[0], 2)), min(tow, _round_up(out_hw[1], 4))
@@ -280,9 +290,6 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
     if f.device != x.device:
         raise ValueError(f"filter on {f.device}, input on {x.device}")
     fw, fh = _get_filter_size(f)
-    if max(fw, fh) > _MAX_TAPS:
-        raise NotImplementedError(f"kernel K2 takes at most {_MAX_TAPS} taps per axis, "
-                                  f"got a {fh}x{fw} filter; use impl='ref'")
     x = x.contiguous()
     upx, upy = up
     downx, downy = down
@@ -292,8 +299,8 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
     out_w = (in_w * upx + padx0 + padx1 - fw) // downx + 1
     if out_h <= 0 or out_w <= 0:
         raise ValueError("padded image is smaller than the filter")
-    y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
     plan = _plan(f.shape, up, down, (out_h, out_w))
+    y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -320,6 +327,18 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
     return y
 
 
+def transposed_padding(x_shape, y_shape, f_size, up, down, padding):
+    """The padding (x0, x1, y0, y1) of the backward launch, the forward
+    transposed: up and down swapped, the filter flipped. `f_size` is
+    (fw, fh), up / down (x, y) pairs, `padding` the forward's."""
+    (fw, fh), (upx, upy), (downx, downy) = f_size, up, down
+    padx0, _, pady0, _ = padding
+    ih, iw = x_shape[2:]
+    oh, ow = y_shape[2:]
+    return (fw - padx0 - 1, iw * upx - ow * downx + padx0 - upx + 1,
+            fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
+
+
 class _Upfirdn2dFunction(torch.autograd.Function):
     """K2 under autograd. The backward is this Function again (up and
     down swapped, the filter flipped, the padding transformed), so it has
@@ -336,15 +355,8 @@ class _Upfirdn2dFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         f, = ctx.saved_tensors
-        up, down, (padx0, _, pady0, _), flip_filter, gain, x_shape = ctx.cfg
-        (upx, upy), (downx, downy) = up, down
-        fw, fh = _get_filter_size(f)
-        _, _, ih, iw = x_shape
-        _, _, oh, ow = dy.shape
-        p = (fw - padx0 - 1,
-             iw * upx - ow * downx + padx0 - upx + 1,
-             fh - pady0 - 1,
-             ih * upy - oh * downy + pady0 - upy + 1)
+        up, down, padding, flip_filter, gain, x_shape = ctx.cfg
+        p = transposed_padding(x_shape, dy.shape, _get_filter_size(f), up, down, padding)
         dx = _Upfirdn2dFunction.apply(dy, f, down, up, p, not flip_filter, gain)
         if dx.shape != x_shape:
             raise RuntimeError(f"upfirdn2d backward shape {tuple(dx.shape)} "

@@ -24,3 +24,7 @@ def split_dos_path_into_components(path):
 def get_filename_without_extension(path):
     base = ntpath.basename(path.replace("\\", "/"))
     return os.path.splitext(base)[0]
+
+
+def get_filename(path):
+    return ntpath.basename(path.replace("\\", "/"))

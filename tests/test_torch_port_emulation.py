@@ -188,6 +188,104 @@ def test_upfirdn2d_2d_filter_takes_the_generic_kernel(emulated):
     assert _rel_err(y_k, up._upfirdn2d_ref(x, f, 1, 1, 1, False, 4)) <= 1e-5
 
 
+# StyleGAN3-R's layers on the decomposed filtered_lrelu, as the 256x256
+# plan (generator_config(use_radial_filters=True, conv_kernel=1)) gives
+# them, at a few pixels: the 1-D up filter (12 taps at up 2, 24 at up 4)
+# and the radial 12x12 down filter at down 2, each forward and backward
+# through the run-time generic instantiation.
+SG3R_CASES = {
+    "radial fd 12x12, down 2": ([1, 2, 30, 27], (12, 12), dict(down=2), "generic"),
+    "radial fd 12x12, down 2, corr": ([2, 1, 29, 30], (12, 12),
+                                      dict(down=2, flip_filter=True), "generic"),
+    "fu 12 taps, up 2, pad (11,10)": ([1, 2, 9, 11], (12,),
+                                      dict(up=2, padding=(11, 10, 11, 10), gain=4), "generic"),
+    "fu 24 taps, up 4, crop (-2,-5)": ([1, 1, 9, 10], (24,),
+                                       dict(up=4, padding=(-2, -5, -2, -5), gain=16), "generic"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SG3R_CASES))
+def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
+    """K2 `generic` with its tap count at run time on the R plan's filters
+    against the plain version: 1e-5 in float32, 1e-2 in bfloat16."""
+    shape, f_shape, kw, variant = SG3R_CASES[name]
+    g = torch.Generator().manual_seed(len(name))
+    f = torch.randn(f_shape, generator=g) / f_shape[0]
+    x = torch.randn(shape, generator=g).to(dtype)
+    args = (up._parse_scaling(kw.get("up", 1)), up._parse_scaling(kw.get("down", 1)),
+            up._parse_padding(kw.get("padding", 0)), bool(kw.get("flip_filter", False)),
+            float(kw.get("gain", 1)))
+    plan = up._plan(f_shape, *args[:2], (1, 1))
+    assert plan == dict(variant=variant)
+    xr = x.clone().requires_grad_(True)
+    y_r = up._upfirdn2d_ref(xr, f, *args[:2], kw.get("padding", 0), args[3], args[4])
+    dy = torch.randn(y_r.shape, generator=g).to(dtype)
+    dx_r, = torch.autograd.grad(y_r, xr, dy)
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    xk = x.clone().requires_grad_(True)
+    y_k = up._Upfirdn2dFunction.apply(xk, f, *args)
+    dx_k, = torch.autograd.grad(y_k, xk, dy)
+    nv[variant] += 2
+    assert up.launches["upfirdn2d"] == n + 2 and up.variant_launches == nv
+    assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    assert _rel_err(y_k, y_r.detach()) <= tol
+    assert _rel_err(dx_k, dx_r) <= tol
+
+
+def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatch):
+    """The decomposed form with impl='auto', as filtered_lrelu runs it for a
+    CUDA tensor and a 2-D fd (the route itself: test_torch_port_plans.py):
+    both FIRs through the host-built K2 `generic` (run-time taps), the two
+    bias_act steps through K1's stand-in launchers, never K3; against the
+    plain version at the R plan's L0 geometry, 1e-5 in float32."""
+    monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
+    monkeypatch.setattr(ba, "_launch_bwd", _bias_act_bwd_stub)
+    impls = []
+    up_ = up  # the module; `up` is the rate below
+
+    def upfirdn2d_on_card(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1,
+                          impl="auto"):
+        impls.append(impl)
+        return up_._Upfirdn2dFunction.apply(
+            x, f, up_._parse_scaling(up), up_._parse_scaling(down),
+            up_._parse_padding(padding), bool(flip_filter), float(gain))
+
+    def bias_act_on_card(x, b=None, dim=1, act="linear", alpha=None, gain=None, clamp=None,
+                         impl="auto"):
+        impls.append(impl)
+        spec = ba.activation_funcs[act]
+        return ba._BiasActFunction.apply(
+            x, b, dim, act, spec.def_alpha if alpha is None else float(alpha),
+            spec.def_gain if gain is None else float(gain), -1.0 if clamp is None else clamp)
+
+    monkeypatch.setattr(fl, "upfirdn2d", upfirdn2d_on_card)
+    monkeypatch.setattr(fl, "bias_act", bias_act_on_card)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn([1, 2, 14, 14], generator=g)
+    fu = torch.randn([12], generator=g) / 12
+    fd = torch.randn([12, 12], generator=g) / 144
+    b = torch.randn([2], generator=g)
+    args = (2, 2, (11, 10, 11, 10), 2 ** 0.5, 0.2, 0.5, False)
+    n_k3, n_ba = dict(fl.launches), dict(ba.launches)
+    n_up = up.variant_launches["generic"]
+    xk = x.clone().requires_grad_(True)
+    y_k = fl._decomposed(xk, fu, fd, b, *args, impl="auto")
+    dy = torch.randn(y_k.shape, generator=g)
+    dx_k, = torch.autograd.grad(y_k, xk, dy)
+    monkeypatch.undo()
+    assert impls == ["auto"] * 4
+    assert fl.launches == n_k3
+    assert up.variant_launches["generic"] == n_up + 4  # two FIRs, forward and backward
+    assert ba.launches["bias_act_fwd"] == n_ba["bias_act_fwd"] + 2
+    xr = x.clone().requires_grad_(True)
+    y_r = fl._filtered_lrelu_ref(xr, fu, fd, b, *args)
+    dx_r, = torch.autograd.grad(y_r, xr, dy)
+    assert _rel_err(y_k, y_r) <= 1e-5
+    assert _rel_err(dx_k, dx_r) <= 1e-5
+
+
 def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
     """A launcher checks the plan it is handed: shared memory that is not
     its own formula's, a tile it cannot split, a variant it was not
@@ -227,6 +325,21 @@ def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
     assert launch2(smem=plan2["smem"] - 4) == 1
     assert launch2(tow=plan2["tow"] + 2) == 1
     assert launch2(up_=2, down=2) == 1
+
+    # The generic kernel: the filter's size picks the unrolled
+    # instantiation (at most 4 taps per axis) or the run-time one (at most 64).
+    kg = host_libraries["upfirdn2d.cu"].upfirdn2d_launch
+    kg.argtypes = [p] * 3 + [i, ll] + [i] * 14 + [f, p]
+    f64 = torch.zeros([64, 64])
+
+    def launch_g(taps):
+        return kg(x2.data_ptr(), y.data_ptr(), f64.data_ptr(), 0, 1, 39, 39, 14, 14, 1, 1,
+                  2, 2, 0, 0, taps, taps, 0, 0, 1.0, None)
+
+    assert launch_g(12) == 0
+    assert launch_g(4) == 0
+    assert launch_g(64) == 0
+    assert launch_g(65) == 1
 
 
 def _second_order(fn, x, dy1, dy2):

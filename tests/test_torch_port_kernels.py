@@ -179,12 +179,41 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         up.upfirdn2d(torch.zeros([1, 1, 8, 8], device=cuda, dtype=torch.float16), f)
     with pytest.raises(ValueError):
         up.upfirdn2d(torch.zeros([1, 1, 8, 8], device=cuda), f.clone().requires_grad_(True))
-    # K2 unrolls at most 4 taps per axis; a larger filter is refused.
-    f8 = up.setup_filter([1, 3, 3, 1, 1, 3, 3, 1], device=cuda, separable=True)
+    # K2's run-time generic instantiation takes at most 64 taps per axis;
+    # a larger filter is refused before any launch.
+    f65 = up.setup_filter([1.0] * 65, device=cuda, separable=True)
     n = up.launches["upfirdn2d"]
-    with pytest.raises(NotImplementedError, match="4 taps"):
-        up.upfirdn2d(torch.zeros([1, 1, 16, 16], device=cuda), f8)
+    with pytest.raises(NotImplementedError, match="64 taps"):
+        up.upfirdn2d(torch.zeros([1, 1, 80, 80], device=cuda), f65)
     assert up.launches["upfirdn2d"] == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["radial 12x12 down 2", "24 taps up 4"])
+def test_upfirdn2d_runtime_taps_match_plain(cuda, case, dtype):
+    """K2 `generic` with its tap count at run time on StyleGAN3-R's
+    filters (the R plan's L10 at a few channels): 1e-5 in float32, 1e-2
+    in bfloat16, forward and backward."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if case.startswith("radial"):
+        f = torch.randn([12, 12], generator=g, device=cuda) / 12
+        shape, kw = [2, 8, 562, 562], dict(down=2)
+    else:
+        f = torch.randn([24], generator=g, device=cuda) / 24
+        shape, kw = [2, 8, 148, 148], dict(up=4, padding=(-2, -5, -2, -5), gain=16)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return up.upfirdn2d(x, f, impl=impl, **kw)
+
+    n = up.variant_launches["generic"]
+    with torch.no_grad():
+        dy = torch.randn(fn(x, "ref").shape, generator=g, device=cuda).to(dtype)
+    y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
+    y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
+    assert up.variant_launches["generic"] == n + 2
+    assert _rel_err(y_k, y_r) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL[dtype]
 
 
 def _second_order(fn, x, dy1, dy2, impl):
@@ -388,14 +417,23 @@ def test_filtered_lrelu_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros([1, 2, 16, 16], device=cuda)
     fu = torch.ones([12], device=cuda) / 12
     n = dict(fl.launches)
+    # K3 handed a 2-D filter directly refuses it.
     with pytest.raises(NotImplementedError, match="1-D"):
-        fl.filtered_lrelu(x, torch.ones([4, 4], device=cuda), fu, up=2, down=2, padding=5)
+        fl._FilteredLReluFunction.apply(x, torch.ones([4, 4], device=cuda), fu, None, 2, 2,
+                                        (5, 5, 5, 5), 2 ** 0.5, 0.2, None, False, False)
     with pytest.raises(ValueError, match="constants"):
         fl.filtered_lrelu(x, fu.clone().requires_grad_(True), fu, up=2, down=2, padding=5)
     with pytest.raises(TypeError):
         fl.filtered_lrelu(x.half(), fu, fu, up=2, down=2, padding=5)
     assert fl.launches == n
-    # The plain version takes the 2-D (radial) filters on the card.
-    y = fl.filtered_lrelu(x, torch.ones([4, 4], device=cuda), fu, up=2, down=2, padding=5,
-                          impl="ref")
-    assert torch.isfinite(y).all() and fl.launches == n
+    # filtered_lrelu takes the 2-D (radial) filters on the card through K1
+    # and K2, never K3, and agrees with the plain version.
+    fd2 = torch.ones([12, 12], device=cuda) / 144
+    x = torch.randn([1, 2, 16, 16], device=cuda)
+    nd, nu = dict(fl.decomposed_calls), up.launches["upfirdn2d"]
+    y = fl.filtered_lrelu(x, fu, fd2, up=2, down=2, padding=5)
+    assert fl.launches == n and up.launches["upfirdn2d"] == nu + 2
+    assert fl.decomposed_calls["filtered_lrelu_decomposed"] == \
+        nd["filtered_lrelu_decomposed"] + 1
+    y_r = fl.filtered_lrelu(x, fu, fd2, up=2, down=2, padding=5, impl="ref")
+    assert _rel_err(y, y_r) <= 1e-5

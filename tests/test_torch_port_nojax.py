@@ -1,7 +1,8 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
 every module of the port and its projector and trainer scripts, and
 running its policies, its projector and trainer command lines, an
-alias-free generator and a metric on the CPU loads no `jax` module, no `click` and nothing of the JAX
+alias-free generator, a metric, the LatentAugment sweep driver and the
+one-command pipeline on the CPU loads no `jax` module, no `click` and nothing of the JAX
 package `latentaugment_tpu`. No source file of the port, nor
 `chip_smoke.py`, nor the port's scripts, names such an import. And
 `--device cuda` without CUDA raises instead of running on the CPU."""
@@ -28,7 +29,10 @@ for name in ("augments.criteria.lpips", "augments.criteria.nst", "augments.geome
              "metrics.metric_main_mi_multimodal", "metrics.metric_utils",
              "metrics.precision_recall", "models.inception", "models.lpips_backbones",
              "models.stylegan2.projector", "models.stylegan2.train", "models.stylegan2.ada",
-             "models.stylegan2.dataset", "utils.util_url"):
+             "models.stylegan2.dataset", "utils.util_url", "utils.util_io",
+             "utils.util_reports", "analysis.hpo", "analysis.umap_analysis",
+             "analysis.umap_plot", "analysis.pr_analysis", "analysis.create_gif",
+             "analysis.sg2_metrics_analysis", "analysis.sg2_metrics_opt"):
     assert "latentaugment_tpu_torch." + name in sys.modules, name
 from latentaugment_tpu_torch import augments, benchmark, data, models, options, utils
 from latentaugment_tpu_torch.models.stylegan3 import filters, networks as sg3
@@ -75,6 +79,17 @@ run = os.path.join(root, "train")
 train_main(["--synthetic", "--device", "cpu", "--batch", "4", "--kimg", "0.004", "--snap",
             "0.004", "--outdir", run, "--aug", "ada"])
 assert any(f.startswith("network-snapshot-") for f in os.listdir(run))
+# The LatentAugment sweep driver (one batch) and the pipeline's command line.
+os.environ["LATENTAUGMENT_N_IMGS"] = "4"
+import scripts.torch_backbone, scripts.torch_backbone_geoaug, scripts.torch_backbone_sg2aug
+from scripts.torch_backbone_latentaug import main as latentaug_main
+outdir, times = latentaug_main(argv + ["--device", "cpu", "--name", "nojax_driver"],
+                               install_logger=False)
+assert sorted(os.listdir(os.path.join(outdir, "latent_aug"))) == ["w_aug_0"] and len(times) == 2
+from scripts.torch_run_pipeline import main as pipeline_main
+tempfile.tempdir = root
+pipe_out, results, _ = pipeline_main(["--synthetic", "--cpu", "--n_imgs", "2"])
+assert len(results) == 4 and os.path.isfile(os.path.join(pipe_out, "pipeline_metrics.json"))
 from latentaugment_tpu_torch.metrics import precision_recall
 rng = np.random.RandomState(0)
 p, r = precision_recall.knn_precision_recall(rng.randn(20, 8), rng.randn(20, 8), device="cpu")
@@ -116,7 +131,14 @@ def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
             "latentaugment_tpu_torch/models/stylegan2/convert.py",
             "latentaugment_tpu_torch/models/stylegan2/legacy.py",
             "latentaugment_tpu_torch/models/stylegan3/convert.py",
-            "scripts/torch_convert_checkpoint.py", "scripts/torch_verify_real_weights.py"} <= names
+            "scripts/torch_convert_checkpoint.py", "scripts/torch_verify_real_weights.py",
+            "scripts/torch_backbone.py", "scripts/torch_backbone_latentaug.py",
+            "scripts/torch_backbone_sg2aug.py", "scripts/torch_backbone_geoaug.py",
+            "scripts/torch_run_pipeline.py", "latentaugment_tpu_torch/utils/util_io.py",
+            "latentaugment_tpu_torch/utils/util_reports.py",
+            "latentaugment_tpu_torch/analysis/hpo.py",
+            "latentaugment_tpu_torch/analysis/sg2_metrics_opt.py",
+            "latentaugment_tpu_torch/analysis/umap_analysis.py"} <= names
     banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
     for path in files:
         with open(path) as f:
@@ -151,6 +173,12 @@ def test_device_cuda_without_cuda_raises(tmp_path):
         train.make_train_fns(networks.generator_config(img_resolution=16),
                              networks.discriminator_config(img_resolution=16),
                              train.train_config())
+    # The sweep drivers default to --device cuda, as the policies do.
+    import sys
+    sys.path.insert(0, REPO)
+    from scripts import torch_backbone_latentaug
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_backbone_latentaug.main(argv, install_logger=False)
     # Nothing was built on the CPU in its place: no manifold caches.
     assert not os.path.exists(os.path.join(str(tmp_path), "interim", "PolicyBench",
                                            "cache_dir"))

@@ -159,6 +159,79 @@ def test_k2_plan(name):
         assert plan["smem"] == up._sep4_smem_bytes(u, d, plan["toh"], plan["tow"]) <= MAX_SMEM
 
 
+def test_k2_plans_of_at_most_4_taps_keep_the_unrolled_kernel():
+    """The SG2 paths' filters (4 taps or fewer) keep their variants, and
+    `generic` its plan (its launcher picks the unrolled instantiation from
+    the filter's size)."""
+    for name, (f_shape, u, d, in_hw, padding, fwd, bwd) in K2_CASES.items():
+        plan = up._plan(f_shape, (u, u), (d, d), in_hw)
+        if plan["variant"] == "generic":
+            assert plan == dict(variant="generic"), name
+
+
+def _sg3r_plan(res):
+    cfg = net3.generator_config(img_resolution=res, use_radial_filters=True, conv_kernel=1,
+                                channel_base=65536, channel_max=1024)
+    return cfg.layers
+
+
+@pytest.mark.parametrize("res", [256, 1024])
+def test_k2_plan_takes_every_sg3r_filter_at_run_time(res):
+    """Every FIR of StyleGAN3-R's decomposed layers (2-D fd of
+    filter_size * down_factor taps per axis, the 1-D fu of
+    filter_size * up_factor) and its backward plan K2 `generic`, whose
+    launcher takes more than 4 taps per axis at run time; 65 raise."""
+    radial = [layer for layer in _sg3r_plan(res) if layer.down_radial]
+    assert radial and all(layer.down_taps == 6 * layer.down_factor == 12 for layer in radial)
+    for layer in radial:
+        fu, fd = net3._layer_filters(layer)
+        assert fd.shape == (layer.down_taps, layer.down_taps) and fu.ndim == 1
+        u, d = layer.up_factor, layer.down_factor
+        for f_shape, rates in ((fd.shape, ((1, 1), (d, d))), (fu.shape, ((u, u), (1, 1)))):
+            want = dict(variant="generic")
+            assert up._plan(f_shape, *rates, (64, 64)) == want
+            assert up._plan(f_shape, *rates[::-1], (64, 64)) == want  # the backward
+    with pytest.raises(NotImplementedError, match="65x65"):
+        up._plan((65, 65), (1, 1), (2, 2), (8, 8))
+
+
+def test_2d_filter_picks_the_decomposed_route():
+    """filtered_lrelu's route comes from the device, the filters' rank and
+    impl alone: a 2-D fd (or fu) on the card is the decomposed form
+    through K1 and K2, 1-D filters K3, the CPU or impl='ref' the plain
+    version."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    fu, fd1, fd2 = torch.ones(12), torch.ones(12), torch.ones(12, 12)
+    assert fl._route(cuda, fu, fd2, "auto") == "decomposed"
+    assert fl._route(cuda, fd2, fu, "auto") == "decomposed"
+    assert fl._route(cuda, fu, fd1, "auto") == "k3"
+    assert fl._route(cuda, None, None, "auto") == "k3"
+    assert fl._route(cuda, fu, fd2, "ref") == "ref"
+    assert fl._route(cpu, fu, fd2, "auto") == "ref"
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        fl._route(torch.device("meta"), fu, fd2, "auto")
+    # K3 handed a 2-D filter directly refuses it, before any launch.
+    with pytest.raises(NotImplementedError, match="1-D"):
+        fl._stage_params((38, 38), fu, fd2, 2, 2, (11, 10, 11, 10), False, False)
+
+
+def test_k2_work_of_2d_filters():
+    """A 2-D filter's multiply-adds are its live taps' product per output:
+    the R plan's radial 12x12 at down 2 (all 144 live), and the backward
+    at up 2 (36 live per output)."""
+    w = up.work([16, 512, 562, 562], (12, 12), down=2, itemsize=2)
+    assert w["out_shape"] == (16, 512, 276, 276)
+    assert w["macs"] == 8192 * 276 * 276 * 144
+    assert w["bytes"] == 8192 * (562 * 562 + 276 * 276) * 2
+    wb = up.work([16, 512, 276, 276], (12, 12), up=2, padding=(11, 10, 11, 10), itemsize=2)
+    assert wb["out_shape"] == (16, 512, 562, 562)
+    assert wb["macs"] == 8192 * 562 * 562 * 36
+    # A 1-D filter counts the two separable passes, live taps only.
+    w1 = up.work([16, 512, 148, 148], (24,), up=4, padding=(-2, -5, -2, -5), itemsize=2)
+    assert w1["out_shape"] == (16, 512, 562, 562)
+    assert w1["macs"] == 8192 * (148 * 562 * 6 + 562 * 562 * 6)
+
+
 def test_k2_plan_needs_the_same_rate_on_both_axes():
     assert up._plan((4,), (2, 1), (1, 1), (32, 64))["variant"] == "generic"
     assert up._plan((4,), (1, 1), (1, 2), (32, 64))["variant"] == "generic"
