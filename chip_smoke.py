@@ -20,7 +20,7 @@ line.
      record (2 bits per up-rate pixel) is compared unpacked.
   2. Small reference: a 32x32 StyleGAN2 walk and a 64x64 StyleGAN3 walk
      (K=3, float32) on the CPU with the plain versions against the same
-     walks on the card through the kernels.
+     walks on the card through the kernels, with deterministic cuDNN.
   3. The StyleGAN2 slice: the LatentAugment policy at the operating point
      (256x256, 2 modalities, channel_base 32768, channel_max 512, bf16 in
      the top 4 blocks, LPIPS VGG16 on 64x64 crops, K=10 Adam steps, batch
@@ -99,8 +99,10 @@ line.
      generic variant with its tap count at run time at the R plan's
      largest layer (L10: the radial 12x12 filter at down 2 in float32 and
      bfloat16, the 24-tap up filter at up 4), forward and backward against
-     the plain version, with bounds and, for the 2-D filter, the depthwise
-     F.conv2d; the R generator at 256x256 in float32, kernels against the
+     the plain version, with bounds and the one PyTorch call that computes
+     the same (the depthwise F.conv2d for the 2-D filter, the depthwise
+     F.conv_transpose2d at stride 4 with the 24x24 outer product, cropped,
+     for the 1-D one); the R generator at 256x256 in float32, kernels against the
      plain versions (image and gradient at ws); the policy walk over an
      SG3-R checkpoint for 3 batches at the largest of SG3R_BATCHES that
      fits without remat, K2 `generic` and the decomposed filtered_lrelu
@@ -121,6 +123,25 @@ line.
      full-size loop: 25k kimg of training to 17 steps, 1000 projector
      steps to PIPE_PROJECT_STEPS, 50k scored images to PIPE_N_IMGS,
      50 tuning trials to 1.
+ 14. scripts/torch_sustained_train.py at the JAX run's operating point
+     (phantom dataset at 256x256, batch 32, SUSTAINED_KIMG kimg, ADA, R1
+     over the whole batch): scripts/torch_check_train_run.py's check must
+     pass; its summary, seconds, images/s, peak memory and launches
+     (bias_act_bwd2 among them). log.jsonl, summary.json and dynamics.png
+     go to chiprun_out/torch_sustained_train_h100/.
+ 15. Export and serving: phase 3's G exported with a symbolic batch
+     (scripts/torch_export_model.py), saved and loaded (.pt2), its
+     graph's latentaugment_torch ops counted; the loaded program at batch
+     32 against the eager G through the kernels (bf16, TOL) with equal
+     launches per forward, a float32 export against the eager G with
+     impl='ref' (CONVERT_TOL); the program served over HTTP on port 0
+     (examples/torch_serve_generator.py) at n = SERVE_NS (33 chunked),
+     images/s beside the eager G's; phase 4's SG3-T G exported at batch
+     SG3_EXPORT_BATCH (filtered_lrelu ops), against its eager forward.
+ 16. examples/torch_train_pix2pix.py on phase 3's workspace (batch 32,
+     K=10, 256x256) for PIX2PIX_STEPS steps: s/step split into the walk
+     and the pix2pix step, losses finite, the walk's launches per batch
+     equal to phase 3's.
 
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
@@ -181,6 +202,14 @@ SG3R_TOL_IMG, SG3R_TOL_GRAD = 1e-4, 1e-3
 # Phase 13, the pipeline: images walked and scored, projector steps, and
 # the images of the one tuning trial.
 PIPE_N_IMGS, PIPE_PROJECT_STEPS, PIPE_TRIAL_IMGS = 512, 5, 64
+# Phase 14: sustained training at the JAX run's operating point (its
+# artifacts/sustained_train_r4 covered 10.016 kimg in 32 log rows).
+SUSTAINED_KIMG = 10
+# Phase 15: the served request sizes (33 is chunked through bucket 32),
+# timed SERVE_REPS times each; the SG3-T G is exported at a concrete batch.
+SERVE_NS, SERVE_REPS, SG3_EXPORT_BATCH = (1, 8, 32, 33), 3, 8
+# Phase 16: pix2pix steps on augmented batches.
+PIX2PIX_STEPS = 20
 # Launch counts by kernel variant, by kernel name; main() fills it.
 VARIANT_COUNTERS = {}
 
@@ -189,10 +218,22 @@ def log(msg):
     print(msg, flush=True)
 
 
+SLOW_CALL_MS, SLOW_CALL_REPS = 100.0, 5  # a call slower than this is timed this many times
+
+
 def median_ms(fn, n=20, warmup=3):
+    """Median of n timed calls (CUDA events) after `warmup` calls; a call
+    that takes over SLOW_CALL_MS is timed SLOW_CALL_REPS times."""
     import torch
 
-    for _ in range(warmup):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) > SLOW_CALL_MS:
+        n = min(n, SLOW_CALL_REPS)
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -535,12 +576,23 @@ def phase_small_reference(torch, benchmark, arch="stylegan2"):
         dict(res=64, channel_base=2048, channel_max=64, num_fp16_res=0, arch=arch,
              num_layers=6)
     out = {}
-    for dev in ("cpu", "cuda"):
-        fns, bundle, g_cfg = benchmark.build_synthetic_setup(
-            torch.device(dev), num_epochs=3, crop_size=16, manifold_items=8, seed=5, **setup)
-        w0 = torch.randn([4, 1, g_cfg.w_dim], generator=torch.Generator().manual_seed(6)) * 0.5
-        img, ws, traces = fns.walk(bundle, w0.to(dev), (2, 4), torch.Generator(device=dev))
-        out[dev] = (ws.cpu(), {k: v.cpu() for k, v in traces.items()}, img.cpu())
+    # cuDNN's default algorithms are not deterministic, and Adam magnifies
+    # their run-to-run noise in w: over 18 runs on an H100 the card's walk
+    # ended 7e-6 to 3.8e-4 from the CPU's, and once 1.3e-3, past the bound;
+    # with deterministic algorithms 2.9e-6 in each of 16 runs. The kernels
+    # are deterministic, and so is this comparison of them.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev in ("cpu", "cuda"):
+            fns, bundle, g_cfg = benchmark.build_synthetic_setup(
+                torch.device(dev), num_epochs=3, crop_size=16, manifold_items=8, seed=5, **setup)
+            w0 = torch.randn([4, 1, g_cfg.w_dim],
+                             generator=torch.Generator().manual_seed(6)) * 0.5
+            img, ws, traces = fns.walk(bundle, w0.to(dev), (2, 4), torch.Generator(device=dev))
+            out[dev] = (ws.cpu(), {k: v.cpu() for k, v in traces.items()}, img.cpu())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     (ws_c, tr_c, img_c), (ws_g, tr_g, img_g) = out["cpu"], out["cuda"]
     # 1e-3 relative: two devices' conv algorithms sum in other orders.
     for k in tr_c:
@@ -561,7 +613,9 @@ def phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev):
     """K2 `generic` with its tap count at run time at the R plan's largest
     layer: the radial 12x12 down filter (float32, bfloat16) and the 1-D up
     filter, forward and backward against the plain version, with bounds
-    and, for the 2-D filter, the depthwise F.conv2d that computes the same."""
+    and the one PyTorch call that computes the same: for the 2-D filter the
+    depthwise F.conv2d, for the 1-D up filter the depthwise
+    F.conv_transpose2d with its outer product, cropped."""
     bf16, f32 = torch.bfloat16, torch.float32
     names = {f32: "float32", bf16: "bfloat16"}
     g = torch.Generator(device=dev).manual_seed(11)
@@ -580,13 +634,25 @@ def phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev):
     for name, shape, f, kw in cases:
         for dtype in ((f32, bf16) if f.ndim == 2 else (bf16,)):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
-            library = None
             if f.ndim == 2:
                 weight = f.flip([0, 1]).to(dtype)[None, None].repeat(shape[1], 1, 1, 1)
 
                 def library(x, weight=weight, stride=kw["down"]):
                     return torch.nn.functional.conv2d(x, weight, stride=stride,
                                                       groups=weight.shape[0])
+            else:
+                # Up-sampling by s with a T-tap filter: the depthwise
+                # transposed conv at stride s with the T x T outer product
+                # (times the gain), cropped to the padding (lo, hi):
+                # upfirdn2d's output m is the full convolution's m + T-1-lo.
+                taps, s_up = f.shape[0], kw["up"]
+                weight = (torch.outer(f, f) * kw["gain"]).to(dtype)[None, None] \
+                    .repeat(shape[1], 1, 1, 1)
+                crop = [lo - (taps - 1), hi + s_up - taps] * 2
+
+                def library(x, weight=weight, stride=s_up, crop=crop):
+                    return torch.nn.functional.pad(torch.nn.functional.conv_transpose2d(
+                        x, weight, stride=stride, groups=weight.shape[0]), crop)
             wkw = dict(up=kw.get("up", 1), down=kw.get("down", 1), padding=kw.get("padding", 0))
             wf = up.work(shape, tuple(f.shape), itemsize=x.element_size(), **wkw)
             # The backward is K2 on dy with up and down swapped.
@@ -617,7 +683,6 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     generator at 256x256 with the kernels against the plain versions, and
     the policy walk at the largest batch that fits without remat."""
     log("phase 11: StyleGAN3-R (radial filters) on the card")
-    t0 = time.time()
     g_cfg, _ = benchmark.make_gd_configs(RES, 2, num_fp16_res=0, arch="stylegan3",
                                          **WIDTHS, **benchmark.SG3R)
     radial = [layer for layer in g_cfg.layers if layer.down_radial]
@@ -706,7 +771,6 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
 
     # K2 at the largest radial layer, at the batch the walk gives it.
     kernel_recs = phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev)
-    log(f"  phase 11 took {time.time() - t0:.1f} s")
     return dict(kernels=kernel_recs, generator=g_rec, walk=walk_rec, layer=layer.name)
 
 
@@ -1996,6 +2060,269 @@ def phase_convert(torch, np, counters, slice_rec, sg3_rec, dev):
     return rec
 
 
+def phase_sustained(torch, counters, dev):
+    """scripts/torch_sustained_train.py at the JAX run's operating point:
+    the phantom dataset at 256x256, batch 32, SUSTAINED_KIMG kimg, R1 over
+    the whole batch; the dynamics check must pass. Its log.jsonl,
+    summary.json and dynamics.png go to chiprun_out/."""
+    from scripts import torch_check_train_run, torch_sustained_train
+
+    log(f"phase 14: sustained training, {RES}x{RES}, batch {BATCH}, {SUSTAINED_KIMG} kimg")
+    art = os.path.join(REPO, "chiprun_out", "torch_sustained_train_h100")
+    shutil.rmtree(art, ignore_errors=True)
+    reset_counters(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    summary = torch_sustained_train.main(["--kimg", str(SUSTAINED_KIMG), "--res", str(RES),
+                                          "--artifacts", art, "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, variants = read_counters(counters, "sustained training",
+                                       ["bias_act_fwd", "bias_act_bwd", "bias_act_bwd2",
+                                        "upfirdn2d"])
+    rows = torch_check_train_run.load_log(art)
+    # The log's `sec` runs from the loop's start: set-up (the phantom zip,
+    # the networks) is outside it. Steady state: after the first row.
+    images_s = rows[-1]["kimg"] * 1e3 / rows[-1]["sec"]
+    steady_s = (rows[-1]["kimg"] - rows[0]["kimg"]) * 1e3 / (rows[-1]["sec"] - rows[0]["sec"])
+    rec = dict(summary=summary, seconds=seconds, loop_seconds=rows[-1]["sec"],
+               images_per_s=images_s, steady_images_per_s=steady_s, peak_mem_bytes=peak,
+               launches=launches, variant_launches=variants, kimg=SUSTAINED_KIMG,
+               rows=len(rows))
+    log(f"  check_rows passed: {json.dumps(summary)}")
+    log(f"  {seconds:.1f} s in all, loop {rows[-1]['sec']:.1f} s: {images_s:.2f} images/s "
+        f"({steady_s:.2f} after the first log row), peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}, by variant {variants}")
+    return rec
+
+
+def _node_counts(program):
+    """Calls of the kernels' custom ops in an exported program's graph."""
+    counts = {}
+    for n in program.graph.nodes:
+        name = str(n.target)
+        if n.op == "call_function" and name.startswith("latentaugment_torch."):
+            key = name.split(".")[1]
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def _launches_of(torch, counters, fn):
+    """(fn's result, the kernels' launches it made) under no_grad."""
+    reset_counters(counters)
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for c in counters for k, v in c.items()}
+
+
+def phase_export(torch, np, counters, slice_rec, sg3_rec, dev):
+    """scripts/torch_export_model.py and examples/torch_serve_generator.py
+    on the card: phase 3's operating-point G exported with a symbolic
+    batch, saved and loaded, its graph's custom ops counted, the loaded
+    program at batch 32 against the eager G through the kernels (bf16,
+    TOL) with the same launches per forward; a float32 export against the
+    eager G with impl='ref' (CONVERT_TOL); the program served on port 0 at
+    n = SERVE_NS, images/s beside the eager G's; phase 4's SG3-T G exported
+    at batch SG3_EXPORT_BATCH against its eager forward."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from examples.torch_serve_generator import serve
+    from latentaugment_tpu_torch.models import networks_for
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint, networks
+    from scripts.torch_export_model import GeneratorProgram, build_export, input_shapes
+
+    log("phase 15: export and serving")
+    root = os.path.join(REPO, "build", "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    argv = slice_rec["argv"]
+    ckpt = argv[argv.index("--model_dir") + 1]
+    t0 = time.time()
+    ep = build_export(ckpt, device=str(dev))
+    export_s = time.time() - t0
+    path = os.path.join(root, "g.pt2")
+    t0 = time.time()
+    torch.export.save(ep, path)
+    program = torch.export.load(path)
+    save_load_s = time.time() - t0
+    nodes = _node_counts(program)
+    for k in ("bias_act_fwd", "upfirdn2d"):
+        if nodes.get(k, 0) <= 0:
+            raise AssertionError(f"exported G: no {k} op in the graph: {nodes}")
+    shapes = input_shapes(program)
+    if len(shapes) != 1 or isinstance(shapes[0][0], int):
+        raise AssertionError(f"exported G: inputs {shapes}, expected one with a symbolic batch")
+
+    def eager_generator(path):
+        """The checkpoint's G with its own config, as the export builds it."""
+        params, cfg, _, _ = checkpoint.load_stylegan(path)
+        G = networks_for(cfg).Generator(cfg)
+        G.load_state_dict(checkpoint.params_to_state_dict(params))
+        return params, cfg, GeneratorProgram(G, 1.0).to(dev).eval().requires_grad_(False)
+
+    g_params, g_cfg, eager = eager_generator(ckpt)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    z = torch.randn([BATCH, g_cfg.z_dim], generator=gen, device=dev)
+    module = program.module()
+    img_e, launches_e = _launches_of(torch, counters, lambda: eager(z))
+    img_p, launches_p = _launches_of(torch, counters, lambda: module(z))
+    if launches_p != launches_e or launches_p["bias_act_fwd"] <= 0 or launches_p["upfirdn2d"] <= 0:
+        raise AssertionError(f"exported G: launches per forward {launches_p}, eager {launches_e}")
+    err = rel_close(img_p, img_e, TOL["bfloat16"], "exported G (bf16 top blocks) vs eager G")
+    ms_p = median_ms(lambda: module(z), n=10)
+    ms_e = median_ms(lambda: eager(z), n=10)
+
+    # Float32: the export through the kernels against the eager G's plain versions.
+    g32 = networks.generator_config(**dict({k: g_cfg[k] for k in checkpoint._G_CFG_KEYS},
+                                           num_fp16_res=0))
+    ckpt32 = os.path.join(root, "g32.pkl")
+    G32 = networks.Generator(g32)
+    G32.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    checkpoint.save_checkpoint(ckpt32, G32)
+    ep32 = build_export(ckpt32, device=str(dev))
+    networks.set_impl(G32, "ref")
+    eager32 = GeneratorProgram(G32, 1.0).to(dev).eval().requires_grad_(False)
+    with torch.no_grad():
+        err32 = rel_close(ep32.module()(z), eager32(z), CONVERT_TOL,
+                          "exported G (float32, kernels) vs eager G (plain)")
+    del ep32, eager32, G32
+
+    # Served on port 0: each n once to warm its bucket, then timed.
+    service, httpd = serve(path, port=0, device=str(dev))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+
+    def http_generate(n, seed):
+        req = urllib.request.Request(url, data=json.dumps(dict(n=n, seed=seed)).encode(),
+                                     headers={"Content-Type": "application/json"})
+        resp = json.loads(urllib.request.urlopen(req, timeout=300).read())
+        return np.load(io.BytesIO(base64.b64decode(resp["images_b64"])))
+
+    served = {}
+    try:
+        for n in SERVE_NS:
+            imgs = http_generate(n, 7)
+            if imgs.shape != (n, g_cfg.img_channels, RES, RES) or not np.isfinite(imgs).all():
+                raise AssertionError(f"served n={n}: {imgs.shape}")
+            times_http, times_direct = [], []
+            for rep in range(SERVE_REPS):
+                t0 = time.time()
+                http_generate(n, rep)
+                times_http.append(time.time() - t0)
+                t0 = time.time()
+                service.generate(n, seed=rep)
+                times_direct.append(time.time() - t0)
+            served[n] = dict(http_s=statistics.median(times_http),
+                             direct_s=statistics.median(times_direct))
+            served[n].update(http_images_per_s=n / served[n]["http_s"],
+                             direct_images_per_s=n / served[n]["direct_s"])
+        # One seed's z is the JAX example's: RandomState(7); the served
+        # images are the eager G's on it, and a chunked request's first 32
+        # are the 32-image request's.
+        z7 = torch.from_numpy(np.random.RandomState(7).randn(33, g_cfg.z_dim)
+                              .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            want = eager(z7[:32]).cpu()
+        got33 = torch.from_numpy(service.generate(33, seed=7))
+        serve_err = rel_close(got33[:32], want, TOL["bfloat16"], "served n=33 (chunked) vs eager G")
+        if not torch.isfinite(got33[32]).all():
+            raise AssertionError("served n=33: the chunked 33rd image is not finite")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    eager_ips = BATCH / (ms_e / 1e3)
+    log(f"  G export {export_s:.1f} s, save + load {save_load_s:.1f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), inputs {shapes}; custom-op nodes {nodes}")
+    log(f"  loaded program at batch {BATCH} vs eager G (bf16): {err:.2e} (<= {TOL['bfloat16']}); "
+        f"float32 export vs eager plain: {err32:.2e} (<= {CONVERT_TOL}); launches per forward "
+        f"{launches_p} = eager's; {ms_p:.2f} ms per forward ({BATCH / (ms_p / 1e3):.1f} images/s) "
+        f"beside the eager G's {ms_e:.2f} ms ({eager_ips:.1f} images/s)")
+    for n, r in served.items():
+        log(f"  served n={n}: HTTP {r['http_s'] * 1e3:.1f} ms ({r['http_images_per_s']:.1f} "
+            f"images/s), in-process generate {r['direct_s'] * 1e3:.1f} ms "
+            f"({r['direct_images_per_s']:.1f} images/s)")
+    log(f"  served n=33 (chunked 32 + 1) vs eager G on RandomState(7): {serve_err:.2e}")
+    del program, module, eager, ep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The alias-free G (phase 4's SG3-T checkpoint) at a concrete batch.
+    argv3 = sg3_rec["argv"]
+    ckpt3 = argv3[argv3.index("--model_dir") + 1]
+    t0 = time.time()
+    ep3 = build_export(ckpt3, batch=SG3_EXPORT_BATCH, device=str(dev))
+    export3_s = time.time() - t0
+    path3 = os.path.join(root, "g3.pt2")
+    torch.export.save(ep3, path3)
+    program3 = torch.export.load(path3)
+    nodes3 = _node_counts(program3)
+    if nodes3.get("filtered_lrelu_fwd", 0) <= 0:
+        raise AssertionError(f"exported SG3-T G: no filtered_lrelu op: {nodes3}")
+    _, c3, eager3 = eager_generator(ckpt3)
+    z3 = torch.randn([SG3_EXPORT_BATCH, c3.z_dim], generator=gen, device=dev)
+    img3_e, launches3_e = _launches_of(torch, counters, lambda: eager3(z3))
+    img3_p, launches3_p = _launches_of(torch, counters, lambda: program3.module()(z3))
+    if launches3_p != launches3_e or launches3_p["filtered_lrelu_fwd"] <= 0:
+        raise AssertionError(f"exported SG3-T G: launches {launches3_p}, eager {launches3_e}")
+    err3 = rel_close(img3_p, img3_e, TOL["bfloat16"], "exported SG3-T G vs eager")
+    log(f"  SG3-T G exported at batch {SG3_EXPORT_BATCH} in {export3_s:.1f} s: custom-op nodes "
+        f"{nodes3}; vs eager {err3:.2e}; launches per forward {launches3_p} = eager's")
+    shutil.rmtree(root, ignore_errors=True)
+    del program3, eager3, ep3
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, save_load_s=save_load_s, nodes=nodes, inputs=str(shapes),
+                launches=launches_p, eager_launches=launches_e, rel_err=err, rel_err_f32=err32,
+                program_ms=ms_p, eager_ms=ms_e, eager_images_per_s=eager_ips,
+                served={str(n): r for n, r in served.items()}, served_rel_err=serve_err,
+                stylegan3=dict(batch=SG3_EXPORT_BATCH, export_s=export3_s, nodes=nodes3,
+                               launches=launches3_p, rel_err=err3))
+
+
+def phase_pix2pix(torch, np, counters, slice_rec, dev):
+    """examples/torch_train_pix2pix.py on phase 3's workspace at the
+    operating point (batch 32, K=10, 256x256): PIX2PIX_STEPS steps, each
+    one policy walk and one pix2pix step; the walk's launches per batch
+    must be phase 3's."""
+    from examples.torch_train_pix2pix import main as pix2pix_main
+
+    log(f"phase 16: pix2pix on augmented batches, {PIX2PIX_STEPS} steps at batch {BATCH}")
+    reset_counters(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    nets, history = pix2pix_main(slice_rec["argv"] + [
+        "--device", str(dev), "--pix2pix_steps", str(PIX2PIX_STEPS), "--name", "pix2pix_chip"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {k: v for c in counters for k, v in c.items()}
+    per_batch = {k: v * N_BATCHES for k, v in launches.items()}
+    want = {k: slice_rec["launches"].get(k, 0) * PIX2PIX_STEPS for k in launches}
+    if per_batch != want:
+        raise AssertionError(f"pix2pix: launches over {PIX2PIX_STEPS} walks {launches}, phase 3's "
+                             f"{slice_rec['launches']} over {N_BATCHES}")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in ("loss_G", "loss_D", "loss_L1")):
+            raise AssertionError(f"pix2pix: a loss is not finite: {h}")
+    if not all(torch.isfinite(p).all() for p in nets.parameters()):
+        raise AssertionError("pix2pix: a parameter is not finite")
+    walk_s = statistics.mean(h["walk_s"] for h in history[1:])
+    step_s = statistics.mean(h["step_s"] for h in history[1:])
+    rec = dict(steps=PIX2PIX_STEPS, seconds=seconds, walk_s=walk_s, step_s=step_s,
+               pix2pix_share=step_s / (walk_s + step_s), launches=launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               first=history[0], last=history[-1])
+    log(f"  {walk_s + step_s:.3f} s/step after the first: walk {walk_s:.3f} s, pix2pix step "
+        f"{step_s * 1e3:.1f} ms ({100 * rec['pix2pix_share']:.1f}%); losses first {history[0]}, "
+        f"last {history[-1]}; launches per walk = phase 3's; {seconds:.1f} s in all")
+    return rec
+
+
 def main():
     import torch
 
@@ -2027,35 +2354,51 @@ def main():
         "TF32 off for convs and matmuls")
 
     VARIANT_COUNTERS.update(upfirdn2d=up.variant_launches, filtered_lrelu=fl.variant_launches)
-    t0 = time.time()
+    t_start = t0 = time.time()
     _build.build_cuda_libraries(["upfirdn2d.cu", "filtered_lrelu.cu"])
     log(f"  nvcc builds (side by side) took {time.time() - t0:.1f} s")
     bias_recs, up_recs = phase_kernels(torch, ba, up, dev)
     fl_recs = phase_flrelu(torch, fl, net3, dev)
     second_recs = phase_second_order(torch, ba, up, dev)
     log(f"  phase 1 took {time.time() - t0:.1f} s (builds included)")
-    small = {"stylegan2": phase_small_reference(torch, benchmark),
-             "stylegan3": phase_small_reference(torch, benchmark, arch="stylegan3")}
-    slice_rec = phase_slice(torch, np, benchmark, (ba.launches, up.launches))
+    phase_s = {"1": time.time() - t0}
+
+    def timed(label, fn, *args, **kwargs):
+        """fn's result; its seconds go to phase_s[label] and the log."""
+        t = time.time()
+        out = fn(*args, **kwargs)
+        phase_s[label] = time.time() - t
+        log(f"  phase {label} took {phase_s[label]:.1f} s")
+        return out
+
+    small = timed("2", lambda: {"stylegan2": phase_small_reference(torch, benchmark),
+                                "stylegan3": phase_small_reference(torch, benchmark,
+                                                                   arch="stylegan3")})
+    slice_rec = timed("3", phase_slice, torch, np, benchmark, (ba.launches, up.launches))
     all_counters = (ba.launches, up.launches, fl.launches)
-    sg3_rec = phase_slice(torch, np, benchmark, all_counters, arch="stylegan3", batch=SG3_BATCH)
+    sg3_rec = timed("4", phase_slice, torch, np, benchmark, all_counters, arch="stylegan3",
+                    batch=SG3_BATCH)
     # What each new path must launch: bias_act and upfirdn2d forward and
     # backward under a StyleGAN2 G (forward only for the metrics' G),
     # filtered_lrelu besides under the alias-free one, and the second
     # derivatives besides in the trainer (R1, path length).
     first_order = ["bias_act_fwd", "bias_act_bwd"]
     sg2_need = [*first_order, *up.launches]
-    proj_rec = phase_projector(torch, np, benchmark, all_counters, sg2_need,
-                               [*first_order, *fl.launches], sg3_rec, dev)
-    tr_rec = phase_tr_walk(torch, np, all_counters, sg2_need, slice_rec)
-    geo_rec = phase_geometric(torch, np, dev)
-    metrics_rec = phase_metrics(torch, np, all_counters, ["bias_act_fwd", "upfirdn2d"],
-                                slice_rec, dev)
-    train_rec = phase_train(torch, np, all_counters, [*ba.launches, *up.launches], dev)
-    convert_rec = phase_convert(torch, np, all_counters, slice_rec, sg3_rec, dev)
-    sg3r_rec = phase_sg3r(torch, np, benchmark, net3, up, fl, all_counters, dev)
-    drivers_rec = phase_drivers(torch, all_counters, slice_rec)
-    pipeline_rec = phase_pipeline(torch, all_counters, slice_rec)
+    proj_rec = timed("5", phase_projector, torch, np, benchmark, all_counters, sg2_need,
+                     [*first_order, *fl.launches], sg3_rec, dev)
+    tr_rec = timed("6", phase_tr_walk, torch, np, all_counters, sg2_need, slice_rec)
+    geo_rec = timed("7", phase_geometric, torch, np, dev)
+    metrics_rec = timed("8", phase_metrics, torch, np, all_counters,
+                        ["bias_act_fwd", "upfirdn2d"], slice_rec, dev)
+    train_rec = timed("9", phase_train, torch, np, all_counters, [*ba.launches, *up.launches],
+                      dev)
+    convert_rec = timed("10", phase_convert, torch, np, all_counters, slice_rec, sg3_rec, dev)
+    sg3r_rec = timed("11", phase_sg3r, torch, np, benchmark, net3, up, fl, all_counters, dev)
+    drivers_rec = timed("12", phase_drivers, torch, all_counters, slice_rec)
+    pipeline_rec = timed("13", phase_pipeline, torch, all_counters, slice_rec)
+    sustained_rec = timed("14", phase_sustained, torch, all_counters, dev)
+    export_rec = timed("15", phase_export, torch, np, all_counters, slice_rec, sg3_rec, dev)
+    pix2pix_rec = timed("16", phase_pix2pix, torch, np, all_counters, slice_rec, dev)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
              "metrics": metrics_rec, "train": train_rec,
@@ -2063,7 +2406,9 @@ def main():
              "walk_conditional": convert_rec["conditional"],
              "stylegan3_pickle": convert_rec["stylegan3_pickle"],
              "walk_stylegan3r": sg3r_rec["walk"], "driver_latentaug": drivers_rec["latentaug"],
-             "driver_sg2aug": drivers_rec["sg2aug"], "pipeline": pipeline_rec}
+             "driver_sg2aug": drivers_rec["sg2aug"], "pipeline": pipeline_rec,
+             "sustained_train": sustained_rec, "exported_g_forward": export_rec,
+             "exported_stylegan3_g_forward": export_rec["stylegan3"], "pix2pix": pix2pix_rec}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -2124,9 +2469,14 @@ def main():
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
                    "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
                    "metrics": metrics_rec, "convert": convert_rec, "sg3r": sg3r_rec,
-                   "drivers": drivers_rec, "pipeline": pipeline_rec, "kernels": kernels}, f,
+                   "drivers": drivers_rec, "pipeline": pipeline_rec,
+                   "sustained_train": sustained_rec, "export": export_rec,
+                   "pix2pix": pix2pix_rec, "phase_seconds": phase_s,
+                   "seconds": time.time() - t_start,
+                   "kernels": kernels}, f,
                   indent=1)
 
+    log(f"chip_smoke took {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

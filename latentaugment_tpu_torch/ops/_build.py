@@ -11,12 +11,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 
 _LIBS = {}
+_LOAD_LOCK = threading.Lock()  # threads' first launches build a library once
 
 
 def set_triton_cache_dir():
@@ -90,7 +92,8 @@ def load_cuda_library(source):
     with ctypes, once per process."""
     if source in _LIBS:
         return _LIBS[source]
-    build_cuda_libraries([source])
-    lib = ctypes.CDLL(_library_path(source)[1])
-    _LIBS[source] = lib
-    return lib
+    with _LOAD_LOCK:
+        if source not in _LIBS:
+            build_cuda_libraries([source])
+            _LIBS[source] = ctypes.CDLL(_library_path(source)[1])
+    return _LIBS[source]

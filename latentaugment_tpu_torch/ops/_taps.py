@@ -9,9 +9,11 @@ Python on the copied values and run anywhere.
 import collections
 import ctypes
 import functools
+import threading
 
 _HOST_TAPS = collections.OrderedDict()
 _HOST_TAPS_MAX = 256
+_HOST_TAPS_LOCK = threading.Lock()  # a served program runs in several threads
 
 
 def host_taps(f):
@@ -22,14 +24,16 @@ def host_taps(f):
     filter while the entry lives. An in-place edit bumps the version and
     is copied anew."""
     key = (f.device, f.data_ptr(), f._version, tuple(f.shape), f.dtype)
-    hit = _HOST_TAPS.get(key)
-    if hit is not None:
-        _HOST_TAPS.move_to_end(key)
-        return hit[1]
+    with _HOST_TAPS_LOCK:
+        hit = _HOST_TAPS.get(key)
+        if hit is not None:
+            _HOST_TAPS.move_to_end(key)
+            return hit[1]
     taps = tuple(float(v) for v in f.detach().to('cpu', copy=True).double().tolist())
-    _HOST_TAPS[key] = (f, taps)
-    if len(_HOST_TAPS) > _HOST_TAPS_MAX:
-        _HOST_TAPS.popitem(last=False)
+    with _HOST_TAPS_LOCK:
+        _HOST_TAPS[key] = (f, taps)
+        if len(_HOST_TAPS) > _HOST_TAPS_MAX:
+            _HOST_TAPS.popitem(last=False)
     return taps
 
 

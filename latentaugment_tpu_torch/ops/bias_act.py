@@ -6,10 +6,12 @@ y = clamp(gain * act(x + b[c]), +-clamp), with the bias broadcast along
 
   * `_bias_act_ref`: plain PyTorch; autograd gives its gradient. It runs
     for CPU tensors and for `impl='ref'`.
-  * kernel K1, two Triton kernels (forward and backward) behind
-    `_BiasActFunction`; the backward is a Function of its own
-    (`_BiasActGradFunction`), so the rectifiers' second derivatives launch
-    the backward kernel again. It runs for every CUDA tensor unless
+  * kernel K1, two Triton kernels (forward and backward), each launched
+    by a registered custom op (`latentaugment_torch::bias_act_fwd` /
+    `::bias_act_bwd`): behind `_BiasActFunction` when a gradient is
+    needed, called directly otherwise. The backward is a Function of its
+    own (`_BiasActGradFunction`), so the rectifiers' second derivatives
+    launch the backward kernel again. It runs for every CUDA tensor unless
     `impl='ref'`; there is no fallback on the card.
 
 K1 replaces the Pallas kernel `_bias_act_pallas`
@@ -31,6 +33,7 @@ the clamp.
 import functools
 import importlib
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -92,7 +95,10 @@ def bias_act(x, b=None, dim=1, act='linear', alpha=None, gain=None, clamp=None,
         return _bias_act_ref(x, b, dim, act, alpha, gain, clamp)
     if x.device.type != 'cuda':
         raise NotImplementedError(f"bias_act has no kernel for {x.device}")
-    return _BiasActFunction.apply(x, b, dim % x.ndim, act, alpha, gain, clamp)
+    dim = dim % x.ndim
+    if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+        return _BiasActFunction.apply(x, b, dim, act, alpha, gain, clamp)
+    return torch.ops.latentaugment_torch.bias_act_fwd(x, b, dim, act, alpha, gain, clamp)
 
 
 def _bias_act_ref(x, b, dim, act, alpha, gain, clamp):
@@ -109,16 +115,53 @@ def _bias_act_ref(x, b, dim, act, alpha, gain, clamp):
 
 
 # ----------------------------------------------------------------------------
-# Kernel K1 (Triton).
+# Kernel K1 (Triton), launched only through the registered custom ops
+# `latentaugment_torch::bias_act_fwd` and `::bias_act_bwd`, so that
+# `torch.export` records the launches as ops of the program (the Triton
+# launch inside is opaque to it). Their fake versions give the output's
+# shape and dtype only. They have no CPU kernel: a CPU tensor raises.
+
+def _bias_act_fwd_impl(x: torch.Tensor, b: Optional[torch.Tensor], dim: int, act: str,
+                       alpha: float, gain: float, clamp: float) -> torch.Tensor:
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    _launch_fwd(x, b.contiguous() if b is not None else None, y, dim, act, alpha, gain, clamp)
+    return y
+
+
+def _bias_act_bwd_impl(dy: torch.Tensor, x: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                       y: torch.Tensor, dim: int, act: str, alpha: float, gain: float,
+                       clamp: float, counter: str) -> torch.Tensor:
+    y = y.contiguous()
+    dx = torch.empty_like(y)
+    _launch_bwd(dy.contiguous(), x if x is None else x.contiguous(),
+                b if b is None else b.contiguous(), y, dx, dim, act, alpha, gain, clamp,
+                counter)
+    return dx
+
+
+_bias_act_fwd_op = torch.library.custom_op(
+    "latentaugment_torch::bias_act_fwd", _bias_act_fwd_impl, mutates_args=(),
+    device_types="cuda")
+_bias_act_bwd_op = torch.library.custom_op(
+    "latentaugment_torch::bias_act_bwd", _bias_act_bwd_impl, mutates_args=(),
+    device_types="cuda")
+
+
+@_bias_act_fwd_op.register_fake
+def _(x, b, dim, act, alpha, gain, clamp):
+    return x.new_empty(x.shape)
+
+
+@_bias_act_bwd_op.register_fake
+def _(dy, x, b, y, dim, act, alpha, gain, clamp, counter):
+    return y.new_empty(y.shape)
+
 
 class _BiasActFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, b, dim, act, alpha, gain, clamp):
-        x = x.contiguous()
-        if b is not None:
-            b = b.contiguous()
-        y = torch.empty_like(x)
-        _launch_fwd(x, b, y, dim, act, alpha, gain, clamp)
+        y = torch.ops.latentaugment_torch.bias_act_fwd(x, b, dim, act, alpha, gain, clamp)
         if act in _ACTS_FROM_Y:
             ctx.save_for_backward(None, None, y)
         else:
@@ -159,9 +202,7 @@ class _BiasActGradFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dy, x, b, y, cfg, counter):
-        dim, act, alpha, gain, clamp = cfg
-        dx = torch.empty_like(y)
-        _launch_bwd(dy.contiguous(), x, b, y, dx, dim, act, alpha, gain, clamp, counter)
+        dx = torch.ops.latentaugment_torch.bias_act_bwd(dy, x, b, y, *cfg, counter)
         ctx.save_for_backward(x, b, y)
         ctx.cfg = cfg
         return dx

@@ -20,8 +20,10 @@ Two implementations sit side by side:
     returns None for a non-separable filter, filtered_lrelu.py:143-145).
     `decomposed_calls['filtered_lrelu_decomposed']` counts these calls.
   * kernel K3, `csrc/filtered_lrelu.cu`, hand-written CUDA for sm_90a,
-    built with nvcc at first use and called through ctypes, behind
-    `_FilteredLReluFunction`. One launch does the whole op for a tile of
+    built with nvcc at first use and called through ctypes inside the
+    registered custom ops `latentaugment_torch::filtered_lrelu_fwd` /
+    `::filtered_lrelu_bwd`, behind `_FilteredLReluFunction` when a
+    gradient is needed. One launch does the whole op for a tile of
     outputs with the up-rate canvas in shared memory; the backward is
     the same kernel in its second mode, reading the sign/clamp record
     the forward writes when autograd needs it. It runs for every CUDA
@@ -47,6 +49,7 @@ by variant. The header of the .cu file says what bounds it and how.
 import ctypes
 import functools
 import math
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,10 +107,11 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
         if f is not None and f.requires_grad:
             raise ValueError("kernel K3 treats the filters as constants; "
                              "use impl='ref' to differentiate w.r.t. them")
-    need_record = torch.is_grad_enabled() and (
-        x.requires_grad or (b is not None and b.requires_grad))
-    return _FilteredLReluFunction.apply(x, fu, fd, b, up, down, padding, gain, slope,
-                                        clamp, bool(flip_filter), need_record)
+    if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+        return _FilteredLReluFunction.apply(x, fu, fd, b, up, down, padding, gain, slope,
+                                            clamp, bool(flip_filter))
+    return torch.ops.latentaugment_torch.filtered_lrelu_fwd(
+        x, fu, fd, b, up, down, list(padding), gain, slope, clamp, bool(flip_filter), False)[0]
 
 
 def _route(device, fu, fd, impl):
@@ -459,24 +463,76 @@ def _record_ref(x, fu, b, up, padding, gain, slope, clamp, flip_filter):
     return pack_record(bits.reshape(-1, *u.shape[2:]))
 
 
+# Kernel K3 is launched only through the registered custom ops
+# `latentaugment_torch::filtered_lrelu_fwd` (the output and the record, an
+# empty uint8 tensor when not asked for) and `::filtered_lrelu_bwd`, so
+# that `torch.export` records each launch as an op of the program. Their
+# fake versions give shapes and dtypes from the shapes alone (no filter
+# value: the real ones copy the taps to the host). They have no CPU
+# kernel: a CPU tensor raises.
+
+def _filtered_lrelu_fwd_impl(x: torch.Tensor, fu: Optional[torch.Tensor],
+                             fd: Optional[torch.Tensor], b: Optional[torch.Tensor], up: int,
+                             down: int, padding: List[int], gain: float, slope: float,
+                             clamp: Optional[float], flip_filter: bool,
+                             need_record: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, record = _forward_kernel(x, fu, fd, b, up, down, tuple(padding), gain, slope, clamp,
+                                flip_filter, need_record)
+    return y, record if record is not None else x.new_empty([0], dtype=torch.uint8)
+
+
+def _filtered_lrelu_bwd_impl(dy: torch.Tensor, record: torch.Tensor, fu: Optional[torch.Tensor],
+                             fd: Optional[torch.Tensor], in_hw: List[int], up: int, down: int,
+                             padding: List[int], gain: float, slope: float,
+                             flip_filter: bool) -> torch.Tensor:
+    return _backward_kernel(dy, record, tuple(in_hw), fu, fd, up, down, tuple(padding), gain,
+                            slope, flip_filter)
+
+
+_filtered_lrelu_fwd_op = torch.library.custom_op(
+    "latentaugment_torch::filtered_lrelu_fwd", _filtered_lrelu_fwd_impl, mutates_args=(),
+    device_types="cuda")
+_filtered_lrelu_bwd_op = torch.library.custom_op(
+    "latentaugment_torch::filtered_lrelu_bwd", _filtered_lrelu_bwd_impl, mutates_args=(),
+    device_types="cuda")
+
+
+def _check_dtype(x):
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel K3 takes float32 or bfloat16, got {x.dtype}")
+
+
+@_filtered_lrelu_fwd_op.register_fake
+def _(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter, need_record):
+    _check_dtype(x)
+    sp = _stage_params(tuple(x.shape[2:]), fu, fd, up, down, tuple(padding), flip_filter,
+                       backward=False)
+    (mid_h, mid_w), n, c = sp['mid_hw'], x.shape[0], x.shape[1]
+    record = [n * c, mid_h, -(-mid_w // 4)] if need_record else [0]
+    return x.new_empty([n, c, *sp['out_hw']]), x.new_empty(record, dtype=torch.uint8)
+
+
+@_filtered_lrelu_bwd_op.register_fake
+def _(dy, record, fu, fd, in_hw, up, down, padding, gain, slope, flip_filter):
+    _check_dtype(dy)
+    return dy.new_empty([dy.shape[0], dy.shape[1], *in_hw])
+
+
 class _FilteredLReluFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter,
-                need_record):
-        y, record = _forward_kernel(x, fu, fd, b, up, down, padding, gain, slope, clamp,
-                                    flip_filter, need_record)
+    def forward(ctx, x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter):
+        y, record = torch.ops.latentaugment_torch.filtered_lrelu_fwd(
+            x, fu, fd, b, up, down, list(padding), gain, slope, clamp, flip_filter, True)
         ctx.save_for_backward(fu, fd, record)
-        ctx.cfg = (tuple(x.shape[2:]), up, down, padding, gain, slope, flip_filter)
+        ctx.cfg = (list(x.shape[2:]), up, down, list(padding), gain, slope, flip_filter)
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
         fu, fd, record = ctx.saved_tensors
-        if record is None:
-            raise RuntimeError("filtered_lrelu backward without the forward's record")
         in_hw, up, down, padding, gain, slope, flip_filter = ctx.cfg
-        dx = _backward_kernel(dy, record, in_hw, fu, fd, up, down, padding, gain, slope,
-                              flip_filter)
+        dx = torch.ops.latentaugment_torch.filtered_lrelu_bwd(
+            dy, record, fu, fd, in_hw, up, down, padding, gain, slope, flip_filter)
         db = dx.sum(dim=(0, 2, 3)) if ctx.needs_input_grad[3] else None
-        return dx, None, None, db, None, None, None, None, None, None, None, None
+        return dx, None, None, db, None, None, None, None, None, None, None

@@ -7,7 +7,9 @@ Two implementations sit side by side:
     definition (the JAX package's `_upfirdn2d_ref`); autograd gives its
     gradient. It runs for CPU tensors and for `impl='ref'`.
   * kernel K2, `csrc/upfirdn2d.cu`, hand-written CUDA for sm_90a, built
-    with nvcc at first use and called through ctypes. Forward and
+    with nvcc at first use and called through ctypes inside the registered
+    custom op `latentaugment_torch::upfirdn2d` (behind
+    `_Upfirdn2dFunction` when a gradient is needed). Forward and
     backward are the same kernels; the backward swaps up and down, flips
     the filter and transforms the padding, as the Pallas kernel's custom
     VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614), and is itself
@@ -32,6 +34,7 @@ file says what bounds it and how.
 """
 
 import ctypes
+from typing import List
 
 import numpy as np
 import torch
@@ -145,9 +148,11 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1,
     if f.requires_grad:
         raise ValueError("kernel K2 treats the filter as a constant; "
                          "use impl='ref' to differentiate w.r.t. it")
-    return _Upfirdn2dFunction.apply(x, f, _parse_scaling(up), _parse_scaling(down),
-                                    _parse_padding(padding), bool(flip_filter),
-                                    float(gain))
+    args = (x, f, _parse_scaling(up), _parse_scaling(down), _parse_padding(padding),
+            bool(flip_filter), float(gain))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upfirdn2dFunction.apply(*args)
+    return torch.ops.latentaugment_torch.upfirdn2d(*args)
 
 
 def _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain):
@@ -282,23 +287,52 @@ def _sep4_taps(f, variant, padding, flip_filter, gain):
     return _taps.c_floats(tx, 8), _taps.c_floats(ty, 8), ox, oy
 
 
+def _output_shape(x, f, up, down, padding):
+    """[N, C, out_h, out_w] of a launch, from the shapes alone."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
+    fw, fh = _get_filter_size(f)
+    n, c, in_h, in_w = x.shape
+    out_h = (in_h * up[1] + padding[2] + padding[3] - fh) // down[1] + 1
+    out_w = (in_w * up[0] + padding[0] + padding[1] - fw) // down[0] + 1
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError("padded image is smaller than the filter")
+    return [n, c, out_h, out_w]
+
+
+# Kernel K2 is launched only through the registered custom op
+# `latentaugment_torch::upfirdn2d`, so that `torch.export` records each
+# launch as an op of the program. Its fake version gives the output's
+# shape and dtype from the shapes alone: it reads no filter value (the
+# real one copies the taps to the host, which synchronises). It has no
+# CPU kernel: a CPU tensor raises.
+
+def _upfirdn2d_impl(x: torch.Tensor, f: torch.Tensor, up: List[int], down: List[int],
+                    padding: List[int], flip_filter: bool, gain: float) -> torch.Tensor:
+    return _launch(x, f, tuple(up), tuple(down), tuple(padding), flip_filter, gain)
+
+
+_upfirdn2d_op = torch.library.custom_op("latentaugment_torch::upfirdn2d", _upfirdn2d_impl,
+                                        mutates_args=(), device_types="cuda")
+
+
+@_upfirdn2d_op.register_fake
+def _(x, f, up, down, padding, flip_filter, gain):
+    return x.new_empty(_output_shape(x, f, up, down, padding))
+
+
 def _launch(x, f, up, down, padding, flip_filter, gain):
     """y = upfirdn2d(x) on the card. up/down are (x, y) pairs, padding is
     (x0, x1, y0, y1)."""
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel K2 takes float32 or bfloat16, got {x.dtype}")
     if f.device != x.device:
         raise ValueError(f"filter on {f.device}, input on {x.device}")
     fw, fh = _get_filter_size(f)
+    n, c, out_h, out_w = _output_shape(x, f, up, down, padding)
     x = x.contiguous()
     upx, upy = up
     downx, downy = down
-    padx0, padx1, pady0, pady1 = padding
-    n, c, in_h, in_w = x.shape
-    out_h = (in_h * upy + pady0 + pady1 - fh) // downy + 1
-    out_w = (in_w * upx + padx0 + padx1 - fw) // downx + 1
-    if out_h <= 0 or out_w <= 0:
-        raise ValueError("padded image is smaller than the filter")
+    padx0, pady0 = padding[0], padding[2]
+    in_h, in_w = x.shape[2:]
     plan = _plan(f.shape, up, down, (out_h, out_w))
     y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
     lib = _library()
@@ -347,7 +381,7 @@ class _Upfirdn2dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, f, up, down, padding, flip_filter, gain):
-        y = _launch(x, f, up, down, padding, flip_filter, gain)
+        y = torch.ops.latentaugment_torch.upfirdn2d(x, f, up, down, padding, flip_filter, gain)
         ctx.save_for_backward(f)
         ctx.cfg = (up, down, padding, flip_filter, gain, x.shape)
         return y

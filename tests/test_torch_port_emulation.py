@@ -54,9 +54,27 @@ def host_libraries(tmp_path_factory):
 
 
 @pytest.fixture
-def emulated(host_libraries, monkeypatch):
+def ops_on_cpu():
+    """The registered custom ops take CPU tensors for the test's duration:
+    each op's real implementation (the launch path) is registered for the
+    CPU in a scoped library, removed again on exit (the ops themselves
+    have no CPU kernel)."""
+    from torch.library import _scoped_library
+
+    impls = {"bias_act_fwd": ba._bias_act_fwd_impl, "bias_act_bwd": ba._bias_act_bwd_impl,
+             "upfirdn2d": up._upfirdn2d_impl, "filtered_lrelu_fwd": fl._filtered_lrelu_fwd_impl,
+             "filtered_lrelu_bwd": fl._filtered_lrelu_bwd_impl}
+    with _scoped_library("latentaugment_torch", "IMPL") as lib:
+        for name, impl in impls.items():
+            lib.impl(name, impl, "CPU")
+        yield
+
+
+@pytest.fixture
+def emulated(host_libraries, monkeypatch, ops_on_cpu):
     """The wrappers' launch paths on CPU tensors: the host libraries in
-    place of the nvcc-built ones, no device guard, stream 0."""
+    place of the nvcc-built ones, no device guard, stream 0, the custom
+    ops registered for the CPU."""
     for source, lib in host_libraries.items():
         monkeypatch.setitem(_build._LIBS, source, lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -411,7 +429,8 @@ def _bias_act_bwd_stub(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
 
 @pytest.mark.parametrize("clamp", [None, 0.5], ids=["noclamp", "clamp"])
 @pytest.mark.parametrize("act", ["linear", "relu", "lrelu"])
-def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, act, clamp):
+def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, ops_on_cpu, act,
+                                                                 clamp):
     monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
     monkeypatch.setattr(ba, "_launch_bwd", _bias_act_bwd_stub)
     g = torch.Generator().manual_seed(4)
@@ -441,7 +460,7 @@ def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, ac
     torch.testing.assert_close(gdy, gdyr, rtol=1e-6, atol=1e-6)
 
 
-def test_bias_act_second_derivative_of_a_smooth_activation_raises(monkeypatch):
+def test_bias_act_second_derivative_of_a_smooth_activation_raises(monkeypatch, ops_on_cpu):
     monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
     monkeypatch.setattr(ba, "_launch_bwd", lambda *a, **k: None)
     x = torch.randn([2, 3, 4, 4], requires_grad=True)

@@ -420,7 +420,7 @@ def test_filtered_lrelu_kernel_refuses_what_it_does_not_take(cuda):
     # K3 handed a 2-D filter directly refuses it.
     with pytest.raises(NotImplementedError, match="1-D"):
         fl._FilteredLReluFunction.apply(x, torch.ones([4, 4], device=cuda), fu, None, 2, 2,
-                                        (5, 5, 5, 5), 2 ** 0.5, 0.2, None, False, False)
+                                        (5, 5, 5, 5), 2 ** 0.5, 0.2, None, False)
     with pytest.raises(ValueError, match="constants"):
         fl.filtered_lrelu(x, fu.clone().requires_grad_(True), fu, up=2, down=2, padding=5)
     with pytest.raises(TypeError):

@@ -1,10 +1,11 @@
 """The PyTorch port runs without JAX: in a fresh interpreter, importing
 every module of the port and its projector and trainer scripts, and
 running its policies, its projector and trainer command lines, an
-alias-free generator, a metric, the LatentAugment sweep driver and the
-one-command pipeline on the CPU loads no `jax` module, no `click` and nothing of the JAX
-package `latentaugment_tpu`. No source file of the port, nor
-`chip_smoke.py`, nor the port's scripts, names such an import. And
+alias-free generator, a metric, the LatentAugment sweep driver, the
+one-command pipeline, an export and the pix2pix nets on the CPU loads no
+`jax` module, no `click` and nothing of the JAX package
+`latentaugment_tpu`. No source file of the port, nor `chip_smoke.py`,
+nor the port's scripts and examples, names such an import. And
 `--device cuda` without CUDA raises instead of running on the CPU."""
 
 import ast
@@ -90,6 +91,16 @@ from scripts.torch_run_pipeline import main as pipeline_main
 tempfile.tempdir = root
 pipe_out, results, _ = pipeline_main(["--synthetic", "--cpu", "--n_imgs", "2"])
 assert len(results) == 4 and os.path.isfile(os.path.join(pipe_out, "pipeline_metrics.json"))
+# Export, serving, the dynamics check and pix2pix (their modules only, and one export).
+import scripts.torch_check_train_run, scripts.torch_sustained_train
+import examples.torch_serve_generator, examples.torch_train_pix2pix
+from latentaugment_tpu_torch.models import pix2pix
+from latentaugment_tpu_torch.utils import util_pix2pix
+from scripts.torch_export_model import build_export
+program = build_export(argv[argv.index("--model_dir") + 1], device="cpu")
+assert program.module()(torch.zeros(2, 512)).shape == (2, 2, 32, 32)
+nets = pix2pix.init_all(0, pix2pix.pix2pix_config(base_channels=4, depth=2, d_layers=2))
+assert pix2pix.count_params(nets) > 0 and util_pix2pix.tensor2im(np.zeros((1, 8, 8))).shape == (8, 8, 3)
 from latentaugment_tpu_torch.metrics import precision_recall
 rng = np.random.RandomState(0)
 p, r = precision_recall.knn_precision_recall(rng.randn(20, 8), rng.randn(20, 8), device="cpu")
@@ -118,6 +129,7 @@ def test_port_policy_runs_without_jax(tmp_path):
 def _port_sources():
     files = glob.glob(os.path.join(REPO, "latentaugment_tpu_torch", "**", "*.py"), recursive=True)
     files += glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
+    files += glob.glob(os.path.join(REPO, "examples", "torch_*.py"))
     return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
 
 
@@ -138,7 +150,11 @@ def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
             "latentaugment_tpu_torch/utils/util_reports.py",
             "latentaugment_tpu_torch/analysis/hpo.py",
             "latentaugment_tpu_torch/analysis/sg2_metrics_opt.py",
-            "latentaugment_tpu_torch/analysis/umap_analysis.py"} <= names
+            "latentaugment_tpu_torch/analysis/umap_analysis.py",
+            "scripts/torch_check_train_run.py", "scripts/torch_sustained_train.py",
+            "scripts/torch_export_model.py", "examples/torch_serve_generator.py",
+            "examples/torch_train_pix2pix.py", "latentaugment_tpu_torch/models/pix2pix.py",
+            "latentaugment_tpu_torch/utils/util_pix2pix.py"} <= names
     banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
     for path in files:
         with open(path) as f:
