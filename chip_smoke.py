@@ -142,6 +142,33 @@ line.
      K=10, 256x256) for PIX2PIX_STEPS steps: s/step split into the walk
      and the pix2pix step, losses finite, the walk's launches per batch
      equal to phase 3's.
+ 17. From volumes to an augmented batch: phantom .npy volumes (TOOL_PATIENTS
+     patients, 2 modalities, RES x RES) through the port's dataset tool
+     (`prepare_pelvis_2_1`: resize, normalize, mask, slice, split, zip),
+     the zip's members checked; the StyleGAN2 policy walks one batch of it
+     over phase 3's checkpoint (launches per batch equal to phase 3's);
+     then examples/torch_train_pix2pix.py for 2 steps on a Mayo Clinic
+     phantom set (create_csv_mayoclinic, the `mayoclinic` loader, the
+     example's baseline without augmentation). It says whether the sanity
+     pictures were written and which of yaml, matplotlib, pandas, nibabel
+     and pydicom this host has.
+ 18. Data parallelism on one card. NCCL at world size 1: the walk through
+     an engine with a 1-rank mesh bit-equal to the one-process walk under
+     deterministic cuDNN. Then two ranks on cuda:0 under gloo (a check, not
+     a deployment; collectives pass through the host), at full width:
+     which gloo collectives take CUDA tensors; the policy with
+     --n_mesh_devices 2 for 2 batches of phase 3's workspace (launches per
+     batch per rank equal to phase 3's), its step-0 loss and gradient at w
+     in float32 against one process (DP_TOL of their max), the walked w's
+     largest difference and the share of coordinates above 1e-3; the
+     trainer at phase 9's widths, step-0 losses and every parameter
+     gradient in float32 against one process (DP_TOL), then each phase
+     twice in bf16 with ADA, random noise and mixing, the replicas
+     bit-equal after every step; the projector's command line with
+     --n_devices 2 (float32), its step-0 distance against one process;
+     FID and precision/recall of the float32 live generator at DP_N_GEN
+     images against one process. Per rank: samples/s, peak memory, K1 and
+     K2 launches.
 
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
@@ -210,6 +237,18 @@ SUSTAINED_KIMG = 10
 SERVE_NS, SERVE_REPS, SG3_EXPORT_BATCH = (1, 8, 32, 33), 3, 8
 # Phase 16: pix2pix steps on augmented batches.
 PIX2PIX_STEPS = 20
+# Phase 17: phantom volumes for the dataset tool (patients x depth, the
+# slices dropped at each end: the tool's default, which keeps the slice
+# ids 10.. that the walk's manifold schedule reads); 4 x (28 - 2 x 10) =
+# 32 slices, one batch.
+TOOL_PATIENTS, TOOL_DEPTH, TOOL_POP = 4, 28, 10
+# Phase 18: 2 ranks against 1 process, step-0 loss and gradient (float32)
+# within DP_TOL of their max; FID within DP_FID_TOL (relative) at DP_N_GEN
+# generated images; the projector's steps; the ranks' time limit.
+DP_TOL, DP_FID_TOL, DP_N_GEN, DP_PROJ_STEPS, DP_TIMEOUT_S = 1e-4, 1e-3, 128, 5, 600
+# Phase 9's bound on a float32 parameter gradient between two correct
+# implementations (of its max), which phase 18 reads its trainer against.
+TRAIN_TOL_GRAD = 2e-2
 # Launch counts by kernel variant, by kernel name; main() fills it.
 VARIANT_COUNTERS = {}
 
@@ -2323,6 +2362,579 @@ def phase_pix2pix(torch, np, counters, slice_rec, dev):
     return rec
 
 
+def _phantom_volume(np, rng, depth, ct):
+    """[depth, RES, RES] of a pelvis-like phantom: a body ellipse with an
+    inner organ and bone, noise, in HU (ct) or MR units."""
+    yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32) / RES - 0.5
+    vol = np.empty((depth, RES, RES), np.float32)
+    for d in range(depth):
+        a, b = 0.42 + 0.03 * np.sin(d / 3.0), 0.30 + 0.02 * np.cos(d / 4.0)
+        body = (xx / a) ** 2 + (yy / b) ** 2 < 1.0
+        organ = ((xx - 0.05) / 0.12) ** 2 + ((yy + 0.02) / 0.09) ** 2 < 1.0
+        bone = ((np.abs(xx) - 0.22) / 0.05) ** 2 + ((yy - 0.08) / 0.06) ** 2 < 1.0
+        if ct:
+            sl = np.where(body, 40.0, -1000.0) + np.where(organ, 30.0, 0.0) \
+                + np.where(bone, 900.0, 0.0)
+        else:
+            sl = np.where(body, 300.0, 0.0) + np.where(organ, 250.0, 0.0) \
+                + np.where(bone, -150.0, 0.0)
+        vol[d] = sl + rng.randn(RES, RES).astype(np.float32) * (20.0 if ct else 15.0)
+    return vol
+
+
+def phase_tools(torch, np, counters, need, slice_rec, dev):
+    """From volumes to an augmented batch: phantom .npy volumes through
+    the port's dataset tool into a zip, the StyleGAN2 policy walking one
+    batch of it (launches per batch = phase 3's), then the pix2pix example
+    for 2 steps on a Mayo Clinic phantom set."""
+    import pickle
+    import zipfile
+
+    from examples.torch_train_pix2pix import main as pix2pix_main
+    from latentaugment_tpu_torch.data import create_csv_mayoclinic, dataset_tool
+
+    log(f"phase 17: volumes -> dataset tool -> zip -> walk; pix2pix on a Mayo Clinic set")
+    root = os.path.join(REPO, "build", "chip_smoke_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(17)
+    raw = os.path.join(root, "raw")
+    for p in range(TOOL_PATIENTS):
+        pdir = os.path.join(raw, f"patient{p + 1:03d}")
+        os.makedirs(pdir)
+        np.save(os.path.join(pdir, "MR_nonrigid_CT.npy"), _phantom_volume(np, rng, TOOL_DEPTH, True))
+        np.save(os.path.join(pdir, "MR_MR_T2.npy"), _phantom_volume(np, rng, TOOL_DEPTH, False))
+    mods = {}
+    for name in ("yaml", "matplotlib", "pandas", "nibabel", "pydicom"):
+        try:
+            __import__(name)
+            mods[name] = True
+        except ImportError:
+            mods[name] = False
+    t0 = time.time()
+    tool_zip = os.path.join(root, "tool.zip")
+    interim = os.path.join(root, "interim_tool")
+    _, splits = dataset_tool.prepare_pelvis_2_1(
+        raw, interim, tool_zip, image_shape=(RES, RES), pop_range=TOOL_POP,
+        apply_mask=True, splits=(1.0, 0.0, 0.0), seed=0)
+    tool_s = time.time() - t0
+    with zipfile.ZipFile(tool_zip) as zf:
+        names = sorted(zf.namelist())
+        first = pickle.loads(zf.read(names[0]))
+    n_slices = TOOL_PATIENTS * (TOOL_DEPTH - 2 * TOOL_POP)
+    if len(names) != n_slices or sorted(first) != ["MR_MR_T2", "MR_nonrigid_CT"] \
+            or first["MR_nonrigid_CT"].shape != (RES, RES):
+        raise AssertionError(f"dataset tool: {len(names)} members (want {n_slices}), "
+                             f"first {names[0]}: {sorted(first)}")
+    sanity = os.path.isdir(os.path.join(interim, "pickles", "sanity_check"))
+    log(f"  prepare_pelvis_2_1: {TOOL_PATIENTS} patients x 2 modalities x {TOOL_DEPTH} slices "
+        f"of {RES}x{RES} -> {len(names)} members in {tool_s:.1f} s; sanity pictures written: "
+        f"{sanity}; modules on this host: {mods}")
+
+    # The policy's workspace around the tool's zip: phase 3's checkpoint,
+    # an inversion zip of seeded codes under the tool's member names.
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint
+
+    ckpt = slice_rec["argv"][slice_rec["argv"].index("--model_dir") + 1]
+    g_cfg = checkpoint.load_stylegan(ckpt)[1]
+    ws = os.path.join(root, "interim", "ToolBench")
+    os.makedirs(ws)
+    shutil.copy(tool_zip, os.path.join(ws, "ToolBench-images.zip"))
+    with zipfile.ZipFile(os.path.join(ws, "ToolBench-inv.zip"), "w") as zf:
+        for name in names:
+            w = rng.randn(g_cfg.num_ws, g_cfg.w_dim).astype(np.float32) * 0.1
+            zf.writestr(name, pickle.dumps(w))
+    over = {"--dataroot": tool_zip, "--interim_dir": os.path.join(root, "interim"),
+            "--dataset_aug": "ToolBench", "--dataset_name_aug": "ToolBench-images",
+            "--dataset_w_name": "ToolBench-inv", "--checkpoints_dir": os.path.join(root, "ck"),
+            "--model_dir": ckpt, "--device": str(dev),
+            # Every slice into the manifolds (the tool numbers slices from 0).
+            "--step_img": "1", "--step_w": "1"}
+    argv = list(slice_rec["argv"])
+    for k, v in over.items():
+        if k in argv:
+            argv[argv.index(k) + 1] = v
+        else:
+            argv += [k, v]
+    batches, launches, setup_s, peak = run_policy(torch, argv, counters, n_batches=1)
+    check_batches(torch, np, batches, BATCH, "tool zip walk", n_batches=1)
+    launches, variants = read_counters(counters, "tool zip walk", need)
+    if {k: v * N_BATCHES for k, v in launches.items()} != slice_rec["launches"]:
+        raise AssertionError(f"tool zip walk: launches per batch {launches}, phase 3's "
+                             f"{slice_rec['launches']} over {N_BATCHES} batches")
+    log(f"  the policy over the tool's zip: batch {BATCH} in {batches[0]['wall']:.3f} s "
+        f"(first batch), set-up {setup_s:.1f} s, launches per batch = phase 3's {launches}")
+
+    # pix2pix on a Mayo Clinic phantom set (HD / LD .npy slices in HU):
+    # the example's baseline without augmentation, as the policies pair A
+    # and B from one slice file and these are two.
+    mayo = os.path.join(root, "mayo")
+    for p in range(2):
+        for dom, noise in (("full_dose_HD", 10.0), ("quarter_dose_LD", 40.0)):
+            d = os.path.join(mayo, f"L{p:03d}", dom)
+            os.makedirs(d)
+            vol = _phantom_volume(np, np.random.RandomState(100 + p), 4, True)
+            for s in range(4):
+                np.save(os.path.join(d, f"slice_{s:03d}.npy"),
+                        vol[s] + rng.randn(RES, RES).astype(np.float32) * noise)
+    csv = create_csv_mayoclinic.create_annotation_file(mayo, os.path.join(root, "csv"),
+                                                       train=1.0, val=0.0, test=0.0)["train"]
+    reset_counters(counters)
+    t0 = time.time()
+    nets, history = pix2pix_main(argv + [
+        "--no_augment", "--dataroot", csv, "--dataset_mode", "mayoclinic", "--img_shape",
+        str(RES), "--batch_size", "4", "--pix2pix_steps", "2", "--name", "pix2pix_mayo"])
+    torch.cuda.synchronize()
+    mayo_s = time.time() - t0
+    mayo_launches = {k: v for c in counters for k, v in c.items()}
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in ("loss_G", "loss_D", "loss_L1")):
+            raise AssertionError(f"pix2pix on the Mayo Clinic set: a loss is not finite: {h}")
+    log(f"  pix2pix on the Mayo Clinic set (2 patients x 4 slice pairs, batch 4, no "
+        f"augmentation): 2 steps in {mayo_s:.1f} s, losses {history[-1]}")
+    return dict(tool_seconds=tool_s, n_members=len(names), sanity_pictures=sanity,
+                modules=mods, launches=launches, variant_launches=variants,
+                first_batch_wall_s=batches[0]["wall"], setup_s=setup_s, peak_mem_bytes=peak,
+                mayo=dict(seconds=mayo_s, history=history, launches=mayo_launches))
+
+
+def _probe_gloo_cuda(torch, dist, dev):
+    """Which collectives a gloo group runs on CUDA tensors in this torch."""
+    out = {}
+    probes = {
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "broadcast": lambda t: dist.broadcast(t, 0),
+        "all_gather": lambda t: dist.all_gather([torch.empty_like(t) for _ in range(2)], t),
+        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+            torch.empty(2 * t.numel(), device=t.device), t),
+        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
+            torch.empty(t.numel() // 2, device=t.device), t),
+    }
+    for name, fn in probes.items():
+        try:
+            fn(torch.ones(8, device=dev))
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = str(e).splitlines()[0][:160]
+        dist.barrier()
+    return out
+
+
+def _dp_rank(rank, port, task_path):
+    """One rank of phase 18 (two ranks on cuda:0 under gloo): the probe,
+    the walk, the trainer, the projector and FID / PR at full width, each
+    beside its 1-process run on rank 0. Writes rank<r>.json."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import random
+
+    from latentaugment_tpu_torch.augments import create_augment, manifold
+    from latentaugment_tpu_torch.data import create_dataset
+    from latentaugment_tpu_torch.metrics import frechet_inception_distance as fid_mod
+    from latentaugment_tpu_torch.metrics import metric_utils, precision_recall
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint, networks, train
+    from latentaugment_tpu_torch.ops import bias_act as ba
+    from latentaugment_tpu_torch.ops import upfirdn2d as up
+    from latentaugment_tpu_torch.options import AugOptions
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+    from latentaugment_tpu_torch.utils.util_misc import check_replica_consistency
+    from scripts.torch_project_dataset import main as project_main
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(task_path) as f:
+        task = json.load(f)
+    globals().update(task["sizes"])  # the parent's sizes (smaller in a CPU rehearsal)
+    dev = torch.device(task["device"])
+    cuda = dev.type == "cuda"
+    pmesh.init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = pmesh.get_mesh(2, devices=str(dev))
+    counters = (ba.launches, up.launches)
+    VARIANT_COUNTERS.update(upfirdn2d=up.variant_launches)
+    first = rank == 0
+    rec = {"rank": rank, "gloo_cuda": _probe_gloo_cuda(torch, dist, dev) if cuda else None}
+
+    def launches_of(label, need):
+        return read_counters(counters, label, need)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # --- the walk: the policy with --n_mesh_devices 2 for 2 batches.
+    argv = task["argv"] + ["--n_mesh_devices", "2", "--device", str(dev)]
+    opt = AugOptions().parse(argv=argv, install_logger=False)
+    augment = create_augment(opt)
+    eng = augment.latent_aug
+    walls = []
+    batches = []
+    reset_counters(counters)
+    peak_reset()
+    for data in create_dataset(opt):
+        t0 = time.time()
+        augment.set_input(data)
+        augment.forward()
+        out = augment.get_output()
+        sync()
+        walls.append(time.time() - t0)
+        batches.append((augment.get_latent_input()["w"], augment.get_latent_output()["w"], out))
+        if len(batches) == 2:
+            break
+    launches, variants = launches_of("data-parallel walk", task["walk_need"])
+    per_batch = {k: v // 2 for k, v in launches.items()}
+    rec["walk"] = dict(walls=walls, samples_per_s=BATCH / walls[1], launches=launches,
+                       variant_launches=variants, peak_mem_bytes=peak(),
+                       launches_per_batch_equal_phase3=all(
+                           per_batch.get(k, 0) * N_BATCHES == v
+                           for k, v in task["walk_launches"].items()))
+    for _, _, o in batches:
+        if o["A"].shape != (BATCH, 1, RES, RES) or not np.isfinite(o["A"]).all():
+            raise AssertionError(f"rank {rank}: data-parallel walk output {o['A'].shape}")
+
+    # Step 0 of the walk (float32, TF32 off): loss and gradient at w,
+    # 2 ranks against 1 process; then the walked w of the operating point.
+    fns, bundle = eng._fns, eng._bundle
+    w = torch.as_tensor(batches[0][0][:, None, :], device=dev)
+    crop = manifold.get_params(eng.res, eng.crop_size, eng.preprocess,
+                               rng=random.Random(18))["crop_pos"]
+    G, D = bundle["G"], bundle["D"]
+    n16 = G.cfg.num_fp16_res
+    G.cfg.num_fp16_res = D.cfg.num_fp16_res = 0
+    rows = pmesh.shard_rows(BATCH, mesh, D.cfg.mbstd_group_size)
+    with torch.enable_grad():
+        wl = rows.take(w).requires_grad_(True)
+        total, _ = fns.loss_fn(bundle, wl, crop, None, rows)
+        g, = torch.autograd.grad(total, wl)
+    loss_dp, grad_dp = rows.sum(total.detach()), rows.gather(g)
+    step0 = None
+    if first:
+        def one_process(w_at):
+            with torch.enable_grad():
+                wf = w_at.clone().requires_grad_(True)
+                total1, _ = fns.loss_fn(bundle, wf, crop)
+                return total1.item(), torch.autograd.grad(total1, wf)[0]
+
+        loss1, g1 = one_process(w)
+        # The one-process gradient's own spread: w moved by one float32 step.
+        _, g1n = one_process(torch.nextafter(w, torch.full_like(w, math.inf)))
+        scale = g1.abs().max()
+        step0 = dict(loss_2rank=loss_dp.item(), loss_1proc=loss1,
+                     grad_err_of_max=((grad_dp - g1).abs().max() / scale).item(),
+                     grad_spread_one_step=((g1n - g1).abs().max() / scale).item())
+    G.cfg.num_fp16_res = D.cfg.num_fp16_res = n16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    img_dp, ws_dp, _ = fns.walk(bundle, rows.take(w), crop, gen, None, rows)
+    ws_dp = rows.gather(ws_dp)
+    walked = None
+    if first:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        _, ws1, _ = fns.walk(bundle, w, crop, gen)
+        diff = (ws_dp - ws1).abs()
+        walked = dict(w_max_diff=diff.max().item(), w_share_above_1e3=(diff > 1e-3).float()
+                      .mean().item())
+    rec["walk"].update(step0=step0, walked=walked)
+    del augment, eng, fns, bundle, G, D
+    free()
+    dist.barrier()
+
+    # --- the trainer at phase 9's widths: step 0 in float32 (const noise,
+    # no mixing, no ADA), every phase's loss and gradient, 2 ranks against
+    # 1 process; then each phase once in the cell's bf16 configuration with
+    # every random draw on, replicas held bit-equal after each step.
+    net = dict(img_resolution=RES, img_channels=2, conv_clamp=256, **WIDTHS)
+    g32 = networks.generator_config(num_mapping_layers=2, num_fp16_res=0, **net)
+    d32 = networks.discriminator_config(num_fp16_res=0, **net)
+    cfg0 = dict(batch_size=BATCH, style_mixing_prob=0.0, noise_mode="const", aug="noaug")
+    gz = torch.Generator(device=dev).manual_seed(31)
+    z = torch.randn([BATCH, g32.z_dim], generator=gz, device=dev)
+    real = torch.rand([BATCH, 2, RES, RES], generator=gz, device=dev) * 2 - 1
+    pl_b = BATCH // 2
+    pl_noise = torch.randn([pl_b, 2, RES, RES], generator=gz, device=dev) / RES
+    pl_mean = torch.tensor(0.5, device=dev)
+
+    def phase_values(fns, state, m, z=z, real=real):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        r = None if m is None else pmesh.shard_rows(BATCH, m, state.D.cfg.mbstd_group_size)
+        rp = None if m is None else pmesh.shard_rows(pl_b, m)
+        tk = (lambda rr, x: x) if m is None else (lambda rr, x: rr.take(x))
+        vals = {}
+        for phase in ("Gmain", "Gpl", "Dmain", "Dr1"):
+            if phase == "Gmain":
+                module, rr = state.G, r
+                loss = fns.loss_g_main(state.G, state.D, tk(r, z), tk(r, z), None, gen, 0.0, r)[0]
+            elif phase == "Gpl":
+                module, rr = state.G, rp
+                loss = fns.loss_g_pl(state.G, pl_mean, tk(rp, z[:pl_b]), tk(rp, z[:pl_b]), None,
+                                     gen, pl_noise=tk(rp, pl_noise), rows=rp)[0]
+            elif phase == "Dmain":
+                module, rr = state.D, r
+                loss = fns.loss_d_main(state.D, state.G, tk(r, real), tk(r, z), tk(r, z), None,
+                                       gen, 0.0, r)[0]
+            else:
+                module, rr = state.D, r
+                loss = fns.loss_d_r1(state.D, tk(r, real), None, r)[0]
+            grads = fns.grads(loss, module, rr)
+            total = loss.detach() if rr is None else rr.sum(loss.detach())
+            vals[phase] = (total.item(), torch.cat([gg.reshape(-1) for gg in grads]))
+            del loss, grads
+        return vals
+
+    fns_dp = train.make_train_fns(g32, d32, train.train_config(**cfg0), device=dev, mesh=mesh)
+    state = fns_dp.init_state(seed=0)
+    dp_vals = phase_values(fns_dp, state, mesh)
+    train_step0 = None
+    if first:
+        fns1 = train.make_train_fns(g32, d32, train.train_config(**cfg0), device=dev)
+        one = phase_values(fns1, state, None)
+        # The one-process gradients' own spread: z and the images moved by
+        # one float32 step.
+        nudged = phase_values(fns1, state, None,
+                              z=torch.nextafter(z, torch.full_like(z, math.inf)),
+                              real=torch.nextafter(real, torch.full_like(real, math.inf)))
+        train_step0 = {p: dict(loss_2rank=dp_vals[p][0], loss_1proc=one[p][0],
+                               grad_err_of_max=((dp_vals[p][1] - one[p][1]).abs().max()
+                                                / one[p][1].abs().max()).item(),
+                               grad_spread_one_step=((nudged[p][1] - one[p][1]).abs().max()
+                                                     / one[p][1].abs().max()).item())
+                       for p in dp_vals}
+        del one, nudged
+    del dp_vals, state, fns_dp
+    free()
+    dist.barrier()
+
+    g16 = networks.generator_config(num_mapping_layers=2, num_fp16_res=4, **net)
+    d16 = networks.discriminator_config(num_fp16_res=4, **net)
+    fns = train.make_train_fns(g16, d16, train.train_config(
+        batch_size=BATCH, aug="fixed", aug_p=0.2, noise_mode="random",
+        style_mixing_prob=0.9), device=dev, mesh=mesh)
+    state = fns.init_state(seed=0)
+    for name in ("G", "D", "G_ema"):
+        pmesh.broadcast_module(state[name], mesh)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = torch.tensor(0.2, device=dev)
+    reset_counters(counters)
+    peak_reset()
+    step_s = {}
+    for step, phase in enumerate(("Gmain", "Gpl", "Dmain", "Dr1") * 2):
+        t0 = time.time()
+        if phase == "Gmain":
+            state, _ = fns.g_main(state, z, z, None, gen, p)
+        elif phase == "Gpl":
+            state, _ = fns.g_reg(state, z[:pl_b], z[:pl_b], None, gen, p)
+        elif phase == "Dmain":
+            state, _ = fns.d_main(state, real, z, z, None, gen, p)
+        else:
+            state, _ = fns.d_reg(state, real, None, gen, p)
+        state = fns.ema(state, 0.99)
+        sync()
+        if step >= 4:  # the second round, warm
+            step_s[phase] = time.time() - t0
+        for name in ("G", "D", "G_ema"):
+            check_replica_consistency(state[name], mesh)  # raises on any differing bit
+    t_launches, _ = launches_of("data-parallel trainer", task["train_need"])
+    rec["train"] = dict(step0=train_step0, phase_s=step_s,
+                        images_per_s_per_phase={k: BATCH / v for k, v in step_s.items()},
+                        launches=t_launches, peak_mem_bytes=peak(), replicas_bit_equal=True)
+    del state, fns
+    free()
+    dist.barrier()
+
+    # --- the projector's command line with --n_devices 2 (float32), beside
+    # its 1-process run on rank 0 (step-0 distance).
+    common = ["--checkpoint", task["ckpt"], "--data_zip", task["data_zip"], "--resolution",
+              str(RES), "--num_steps", str(DP_PROJ_STEPS), "--batch_size", str(PROJ_BATCH),
+              "--max_items", str(PROJ_BATCH), "--w_avg_samples", "2000", "--num_fp16_res", "0",
+              "--device", str(dev)]
+    reset_counters(counters)
+    peak_reset()
+    t0 = time.time()
+    recs = project_main(common + ["--n_devices", "2", "--outdir",
+                                  os.path.join(task["root"], "proj_dp")])
+    proj_s = time.time() - t0
+    p_launches, _ = launches_of("data-parallel projector", task["walk_need"])
+    proj = dict(seconds=proj_s, batch_s=recs[0]["seconds"],
+                slices_per_s=PROJ_BATCH / recs[0]["seconds"], launches=p_launches,
+                peak_mem_bytes=peak(), dists=recs[0]["dists"])
+    if first:
+        one = project_main(common + ["--outdir", os.path.join(task["root"], "proj_1")])
+        proj.update(dists_1proc=one[0]["dists"])
+    rec["projector"] = proj
+    dist.barrier()
+
+    # --- FID and PR of the live generator (float32) over phase 3's
+    # slices, 2 ranks against 1 process.
+    g_params, g_cfg, _, _ = checkpoint.load_stylegan(task["ckpt"])
+    g_cfg.num_fp16_res = 0
+    Gm = networks.Generator(g_cfg)
+    Gm.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    Gm = Gm.to(dev).eval().requires_grad_(False)
+
+    def metrics(m):
+        opts = metric_utils.MetricOptions(
+            G=Gm, G_kwargs=dict(seed=0), cache=False, device=dev, mesh=m,
+            dataset_kwargs=dict(path=task["data_zip"], split="train",
+                                modalities=["MR_nonrigid_CT", "MR_MR_T2"], resolution=RES),
+            mode_dict=dict(mode_name="MR_nonrigid_CT", mode_idx=0))
+        t0 = time.time()
+        fid = fid_mod.compute_fid(opts, max_real=None, num_gen=DP_N_GEN)
+        pr = precision_recall.compute_pr(opts, max_real=200000, num_gen=DP_N_GEN, nhood_size=3,
+                                         row_batch_size=10000, col_batch_size=10000)
+        return dict(fid=fid, precision=pr[0], recall=pr[1], seconds=time.time() - t0)
+
+    reset_counters(counters)
+    rec["metrics"] = metrics(mesh)
+    rec["metrics"]["launches"] = launches_of("data-parallel metrics",
+                                             [k for k in task["walk_need"] if k != "bias_act_bwd"])[0]
+    if first:
+        rec["metrics"]["one_process"] = metrics(None)
+    dist.barrier()
+    with open(os.path.join(task["root"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def phase_dp(torch, np, counters, need, slice_rec, dev):
+    """Data parallelism on one card: NCCL at world size 1, the walk
+    bit-equal to the one-process walk under deterministic cuDNN; then two
+    ranks on cuda:0 under gloo (a check, not a deployment) for the walk,
+    the trainer, the projector and FID / PR at full width."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from latentaugment_tpu_torch.augments import engine
+    from latentaugment_tpu_torch.options import AugOptions
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+    log("phase 18: data parallelism on one card (NCCL at world size 1; 2 ranks under gloo)")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share this card with this process
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    argv = slice_rec["argv"]
+    opt = AugOptions().parse(argv=argv + ["--device", str(dev)], install_logger=False)
+    w = np.random.RandomState(18).randn(BATCH, 1, 512).astype(np.float32) * 0.1
+
+    pmesh.init_distributed(f"localhost:{pmesh.free_port()}", 1, 0,
+                           backend=pmesh.backend_for(dev))
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        outs = {}
+        for label, m in (("one process", None), ("NCCL world 1", pmesh.get_mesh(1, devices=str(dev)))):
+            eng = engine.LatentAugEngine("train", opt, root, dev, mesh=m)
+            reset_counters(counters)
+            img, ws = eng.forward(w)
+            outs[label] = (img.cpu(), ws.cpu(), read_counters(counters, label, need)[0])
+            del eng
+        nccl_equal = all(torch.equal(a, b) for a, b in zip(outs["one process"][:2],
+                                                             outs["NCCL world 1"][:2]))
+        if not nccl_equal or outs["one process"][2] != outs["NCCL world 1"][2]:
+            raise AssertionError("NCCL at world size 1: the walk is not bit-equal to the "
+                                 "one-process walk under deterministic cuDNN")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        dist.destroy_process_group()
+    log(f"  NCCL at world size 1: image and w bit-equal to the one-process walk, launches "
+        f"{outs['NCCL world 1'][2]}")
+    del outs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    opt_map = dict(zip(argv[::2], argv[1::2]))
+    task = dict(root=root, argv=argv, ckpt=opt_map["--model_dir"], data_zip=opt_map["--dataroot"],
+                device=str(dev), walk_need=need, walk_launches=slice_rec["launches"],
+                train_need=[*need, "bias_act_bwd2"] if need else [],
+                sizes=dict(RES=RES, BATCH=BATCH, N_BATCHES=N_BATCHES, PROJ_BATCH=PROJ_BATCH,
+                           WIDTHS=WIDTHS, DP_PROJ_STEPS=DP_PROJ_STEPS, DP_N_GEN=DP_N_GEN))
+    task_path = os.path.join(root, "task.json")
+    with open(task_path, "w") as f:
+        json.dump(task, f)
+    ctx = multiprocessing.get_context("spawn")
+    port = pmesh.free_port()
+    t0 = time.time()
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, task_path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=DP_TIMEOUT_S - (time.time() - t0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 18: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    s0 = r0["walk"]["step0"]
+    # Losses to DP_TOL. The gradients are read against their own spread
+    # (the one-process gradient at inputs moved by one float32 step) and
+    # held to the bounds of two correct implementations: the walk's
+    # TOL_GRAD_WALK (phase 10), the trainer's TRAIN_TOL_GRAD (phase 9).
+    if abs(s0["loss_2rank"] - s0["loss_1proc"]) > DP_TOL * abs(s0["loss_1proc"]) \
+            or s0["grad_err_of_max"] > TOL_GRAD_WALK:
+        raise AssertionError(f"data-parallel walk, step 0 (float32): {s0}")
+    for phase, v in r0["train"]["step0"].items():
+        if abs(v["loss_2rank"] - v["loss_1proc"]) > DP_TOL * abs(v["loss_1proc"]) \
+                or v["grad_err_of_max"] > TRAIN_TOL_GRAD:
+            raise AssertionError(f"data-parallel trainer, step 0 {phase} (float32): {v}")
+    pr = r0["projector"]
+    if abs(pr["dists"][0] - pr["dists_1proc"][0]) > DP_TOL * abs(pr["dists_1proc"][0]):
+        raise AssertionError(f"data-parallel projector, step-0 distance: {pr['dists'][0]} vs "
+                             f"{pr['dists_1proc'][0]}")
+    mt, mt1 = r0["metrics"], r0["metrics"]["one_process"]
+    if abs(mt["fid"] - mt1["fid"]) > DP_FID_TOL * abs(mt1["fid"]) \
+            or abs(mt["precision"] - mt1["precision"]) > 2.0 / DP_N_GEN \
+            or abs(mt["recall"] - mt1["recall"]) > 2.0 / DP_N_GEN:
+        raise AssertionError(f"data-parallel metrics: {mt} vs one process {mt1}")
+    for r in ranks:
+        if not r["walk"]["launches_per_batch_equal_phase3"]:
+            raise AssertionError(f"rank {r['rank']}: the walk's launches per batch "
+                                 f"{r['walk']['launches']} (2 batches) are not phase 3's")
+    for r in ranks:
+        log(f"  rank {r['rank']}: walk {r['walk']['samples_per_s']:.3f} samples/s (batch {BATCH} "
+            f"over 2 ranks, second batch), peak {r['walk']['peak_mem_bytes'] / 2**30:.2f} GiB, "
+            f"launches over 2 batches {r['walk']['launches']}; trainer per phase "
+            f"{ {k: round(v, 3) for k, v in r['train']['phase_s'].items()} } s, peak "
+            f"{r['train']['peak_mem_bytes'] / 2**30:.2f} GiB, launches {r['train']['launches']}; "
+            f"projector {r['projector']['slices_per_s']:.3f} slices/s, launches "
+            f"{r['projector']['launches']}; metrics launches {r['metrics']['launches']}")
+    log(f"  gloo on CUDA tensors: {r0['gloo_cuda']}")
+    log(f"  step 0 of the walk (float32), 2 ranks vs 1 process: {s0}; walked w (bf16 top "
+        f"blocks): {r0['walk']['walked']}")
+    log(f"  trainer step 0 (float32): {r0['train']['step0']}; replicas bit-equal after every "
+        f"step of each phase")
+    log(f"  projector step-0 distance {pr['dists'][0]:.6f} vs 1 process {pr['dists_1proc'][0]:.6f}; "
+        f"FID {mt['fid']:.4f} vs {mt1['fid']:.4f}, precision {mt['precision']:.4f} vs "
+        f"{mt1['precision']:.4f}, recall {mt['recall']:.4f} vs {mt1['recall']:.4f} "
+        f"({DP_N_GEN} generated, float32 G)")
+    return dict(nccl_world1_bit_equal=nccl_equal, ranks=ranks, seconds=time.time() - t0)
+
+
 def main():
     import torch
 
@@ -2399,6 +3011,9 @@ def main():
     sustained_rec = timed("14", phase_sustained, torch, all_counters, dev)
     export_rec = timed("15", phase_export, torch, np, all_counters, slice_rec, sg3_rec, dev)
     pix2pix_rec = timed("16", phase_pix2pix, torch, np, all_counters, slice_rec, dev)
+    sg2_counters = (ba.launches, up.launches)
+    tools_rec = timed("17", phase_tools, torch, np, sg2_counters, sg2_need, slice_rec, dev)
+    dp_rec = timed("18", phase_dp, torch, np, sg2_counters, sg2_need, slice_rec, dev)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
              "metrics": metrics_rec, "train": train_rec,
@@ -2408,7 +3023,12 @@ def main():
              "walk_stylegan3r": sg3r_rec["walk"], "driver_latentaug": drivers_rec["latentaug"],
              "driver_sg2aug": drivers_rec["sg2aug"], "pipeline": pipeline_rec,
              "sustained_train": sustained_rec, "exported_g_forward": export_rec,
-             "exported_stylegan3_g_forward": export_rec["stylegan3"], "pix2pix": pix2pix_rec}
+             "exported_stylegan3_g_forward": export_rec["stylegan3"], "pix2pix": pix2pix_rec,
+             "tool_zip_walk": tools_rec, "pix2pix_mayoclinic": tools_rec["mayo"],
+             **{f"dp_walk_rank{r['rank']}": r["walk"] for r in dp_rec["ranks"]},
+             **{f"dp_train_rank{r['rank']}": r["train"] for r in dp_rec["ranks"]},
+             **{f"dp_projector_rank{r['rank']}": r["projector"] for r in dp_rec["ranks"]},
+             **{f"dp_metrics_rank{r['rank']}": r["metrics"] for r in dp_rec["ranks"]}}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -2471,7 +3091,8 @@ def main():
                    "metrics": metrics_rec, "convert": convert_rec, "sg3r": sg3r_rec,
                    "drivers": drivers_rec, "pipeline": pipeline_rec,
                    "sustained_train": sustained_rec, "export": export_rec,
-                   "pix2pix": pix2pix_rec, "phase_seconds": phase_s,
+                   "pix2pix": pix2pix_rec, "tools": tools_rec, "data_parallel": dp_rec,
+                   "phase_seconds": phase_s,
                    "seconds": time.time() - t_start,
                    "kernels": kernels}, f,
                   indent=1)

@@ -6,9 +6,10 @@ Per batch: the augment policy runs the K-step latent walk, and the
 augmented (A, B) pair feeds one pix2pix train step
 (`models/pix2pix.make_train_step`: both losses and gradients from the
 pre-update G and D, then both Adam steps). Everything runs on the
-options' `--device` (default cuda; cuda without CUDA raises). A mesh
-(`--n_mesh_devices` above 1) raises in the options, as every `mesh=`
-path of the port does: the DDP slice is not ported.
+options' `--device` (default cuda; cuda without CUDA raises). Under
+torchrun with `--n_mesh_devices N` the walk runs data-parallel over the
+N ranks; every rank receives the global augmented batch and takes the
+same pix2pix step.
 
 Run on synthetic data (no downloads; the port's own workspace builder,
 32x32 tiny nets):
@@ -19,6 +20,14 @@ or point the usual AugOptions flags at a real workspace, e.g.:
 
     python examples/torch_train_pix2pix.py --dataroot ... --model_dir ... \\
         --dataset_mode pelvis --aug latent --init_w inv --batch_size 8
+
+`--no_augment` trains the same pix2pix on the loader's pairs as they
+are, the baseline a LatentAugment run is compared with; it also takes
+loaders whose A and B are separate files (the Mayo Clinic and VCE sets),
+which the augment policies, pairing A and B from one slice file, refuse:
+
+    python examples/torch_train_pix2pix.py --no_augment --dataset_mode mayoclinic \\
+        --dataroot mayoclinic_train.csv --img_shape 256 --model_dir ... --interim_dir ...
 
 `main` returns the pix2pix networks and one record per step: the walk's
 and the pix2pix step's host seconds (each ends on a host copy of its
@@ -63,6 +72,7 @@ def main(argv=None):
         return default
 
     synthetic = pop_flag("--synthetic", False, is_bool=True)
+    no_augment = pop_flag("--no_augment", False, is_bool=True)
     steps = int(pop_flag("--pix2pix_steps", "50"))
     lambda_l1 = float(pop_flag("--lambda_l1", "100.0"))
     lr = float(pop_flag("--pix2pix_lr", "2e-4"))
@@ -82,7 +92,7 @@ def main(argv=None):
     opt = AugOptions().parse(argv=argv, install_logger=False)
     device = resolve_device(opt.device)
     dataset = create_dataset(opt)
-    augment = create_augment(opt)
+    augment = None if no_augment else create_augment(opt)
 
     cfg = pix2pix.pix2pix_config(lambda_l1=lambda_l1, lr=lr)
     nets = pix2pix.init_all(getattr(opt, "seed", 0), cfg, device=device)
@@ -97,9 +107,11 @@ def main(argv=None):
             if len(history) >= steps:
                 break
             t_walk = time.time()
-            augment.set_input(data)
-            augment.forward()
-            out = augment.get_output()  # {'A','B','A_paths','B_paths'}, host arrays
+            out = data
+            if augment is not None:
+                augment.set_input(data)
+                augment.forward()
+                out = augment.get_output()  # {'A','B','A_paths','B_paths'}, host arrays
             t_step = time.time()
             a = torch.as_tensor(np.asarray(out["A"], np.float32), device=device)
             b = torch.as_tensor(np.asarray(out["B"], np.float32), device=device)

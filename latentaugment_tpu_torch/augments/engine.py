@@ -19,8 +19,15 @@ A conditional checkpoint (c_dim > 0) takes one-hot labels `c` [B, c_dim]
 in `forward` / `forward_ganrand`: they reach the projection
 discriminator inside the walk and the mapping for z input.
 
-Not ported here: the device mesh and tensor parallelism (a `mesh` that is
-not None raises).
+Data parallelism (`mesh=`, a DeviceMesh of parallel/mesh.py, one process
+per device): every rank gets the global batch, walks its own rows and
+returns the global result. Every loss term is a batch mean, so each rank
+scales its local mean by n_local / n: each w's gradient, and so its Adam
+path, is the one-process one, with no collective inside the K steps. The
+discriminator's minibatch-stddev groups stay whole on one rank
+(`shard_rows` with D's group size), the final synthesis draws its noise
+for the global batch and takes its rows, and the loss traces are summed
+across ranks once per walk. Each rank runs its own kernels.
 """
 
 import json
@@ -35,6 +42,7 @@ import torch
 from ..models import networks_for, vgg
 from ..models.stylegan2 import checkpoint, networks
 from ..ops.adam import adam_step as _adam_update
+from ..parallel import mesh as pmesh
 from ..utils import util_general, util_path
 from ..utils.util_easydict import EasyDict
 from ..utils.util_general import resolve_device  # noqa: F401 (re-exported)
@@ -123,21 +131,25 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
     if w_lpips > 0.0:
         terms["loss_lpips"] = lambda bundle, ws, x, crop_pos, c: term_lpips(bundle, x, crop_pos)
 
-    def loss_fn(bundle, w, crop_pos, c=None):
-        """(total, aux): total = -latent - pix - lpips + disc."""
+    def loss_fn(bundle, w, crop_pos, c=None, rows=None):
+        """(total, aux): total = -latent - pix - lpips + disc. Under data
+        parallelism (`rows`: this rank's rows of the global batch) each
+        term is the rank's share of the global batch mean."""
         ws, x = synth(bundle, w)
         aux = {name: fn(bundle, ws, x, crop_pos, c) for name, fn in terms.items()}
+        if rows is not None:
+            aux = {name: val * rows.scale for name, val in aux.items()}
         total = (-aux.get("loss_latent", 0.0) - aux.get("loss_pix", 0.0)
                  - aux.get("loss_lpips", 0.0) + aux.get("loss_disc", 0.0))
         aux["loss"] = total
         return total, aux
 
-    def adam_step(bundle, carry, t, crop_pos, c=None):
+    def adam_step(bundle, carry, t, crop_pos, c=None, rows=None):
         """One Adam update on w; `t` is the 0-based step (a Python int)."""
         w, m, v = carry
         with torch.enable_grad():
             w_leaf = w.detach().requires_grad_(True)
-            total, aux = loss_fn(bundle, w_leaf, crop_pos, c)
+            total, aux = loss_fn(bundle, w_leaf, crop_pos, c, rows)
             if terms:
                 g, = torch.autograd.grad(total, w_leaf)
             else:
@@ -146,30 +158,37 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
         return (w, m, v), {k: torch.as_tensor(val).detach() for k, val in aux.items()}
 
     @torch.no_grad()
-    def finish(bundle, w0, w_opt, generator):
+    def finish(bundle, w0, w_opt, generator, rows=None):
         """Soft/hard gate + final synthesis with random noise."""
         w_aug = alpha * w_opt + (1.0 - alpha) * w0 if soft_aug else w_opt
         ws_aug = broadcast(w_aug)
-        img = bundle["G"].synthesis(ws_aug, noise_mode="random", generator=generator)
+        img = bundle["G"].synthesis(ws_aug, noise_mode="random", generator=generator,
+                                    rows=rows)
         return img, ws_aug
 
-    def walk(bundle, w0, crop_pos, generator, c=None):
+    def walk(bundle, w0, crop_pos, generator, c=None, rows=None):
         """K Adam steps on w; returns (img_aug, ws_aug, traces) where
         traces maps each loss name to a [K] tensor of the per-step values
-        (taken before each step's update)."""
+        (taken before each step's update). Under data parallelism w0 and c
+        are this rank's `rows` of the global batch, img_aug and ws_aug
+        too, and the traces are the global batch's."""
         carry = (w0, torch.zeros_like(w0), torch.zeros_like(w0))
         steps = []
         for t in range(num_epochs):
-            carry, aux = adam_step(bundle, carry, t, crop_pos, c)
+            carry, aux = adam_step(bundle, carry, t, crop_pos, c, rows)
             steps.append(aux)
-        img, ws_aug = finish(bundle, w0, carry[0], generator)
+        img, ws_aug = finish(bundle, w0, carry[0], generator, rows)
         traces = {k: torch.stack([s[k] for s in steps]) for k in steps[0]} if steps else {}
+        if rows is not None and traces:
+            names = sorted(traces)
+            summed = rows.sum(torch.stack([traces[k].float() for k in names]))
+            traces = dict(zip(names, summed))
         return img, ws_aug, traces
 
     @torch.no_grad()
-    def ganrand(bundle, z, generator, c=None):
+    def ganrand(bundle, z, generator, c=None, rows=None):
         ws = bundle["G"].mapping(z, c, truncation_psi=truncation_psi)
-        img = bundle["G"].synthesis(ws, noise_mode="random", generator=generator)
+        img = bundle["G"].synthesis(ws, noise_mode="random", generator=generator, rows=rows)
         return img, ws
 
     @torch.no_grad()
@@ -216,10 +235,7 @@ class LatentAugEngine:
     """Holds G/D/VGG + manifold summaries + the walk functions."""
 
     def __init__(self, phase, opt, save_dir, device, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data / tensor parallelism) belongs to the DDP slice, "
-                "which is not ported yet")
+        self.mesh = pmesh.check_mesh(mesh)
         self.save_dir = save_dir
         self.model_dir = opt.model_dir
         self.interim_dir = opt.interim_dir
@@ -412,19 +428,26 @@ class LatentAugEngine:
         fused walk and record its loss traces and wall time."""
         w = self._to_device(w)
         c = self._labels(c, w.shape[0])
+        rows = None
+        if self.mesh is not None:
+            rows = pmesh.shard_rows(w.shape[0], self.mesh, group_size=self._mbstd_group())
+            w, c = rows.take(w), rows.take(c)
         if w.ndim == 2:
             w = self._fns.z_to_w(self._bundle, w, c)
         crop_pos = manifold.get_params(self.res, self.crop_size, self.preprocess,
                                        rng=self._crop_rng)["crop_pos"]
         tick = time.time()
-        if self.verbose_log and not self._verbose_done:
+        # The un-fused walk is one process's: under a mesh the fused walk runs.
+        if self.verbose_log and not self._verbose_done and rows is None:
             self._verbose_done = True
             img, ws_aug = self._walk_debug(w, crop_pos, fname, c)
             self._sync()
             self.stats_time["last_forward_s"] = time.time() - tick
             return img, ws_aug
         img, ws_aug, self.last_traces = self._fns.walk(self._bundle, w, crop_pos,
-                                                       self._synth_gen, c)
+                                                       self._synth_gen, c, rows)
+        if rows is not None:
+            img, ws_aug = rows.gather(img), rows.gather(ws_aug)
         if self.verbose_log:
             self._sync()
             self._record_traces(self.last_traces, time.time() - tick)
@@ -433,8 +456,18 @@ class LatentAugEngine:
     def forward_ganrand(self, z, c=None):
         """z [B, z_dim] (and labels c as in forward) -> (img, ws)."""
         z = self._to_device(z)
-        return self._fns.ganrand(self._bundle, z, self._synth_gen,
-                                 self._labels(c, z.shape[0]))
+        c = self._labels(c, z.shape[0])
+        if self.mesh is None:
+            return self._fns.ganrand(self._bundle, z, self._synth_gen, c)
+        rows = pmesh.shard_rows(z.shape[0], self.mesh)
+        img, ws = self._fns.ganrand(self._bundle, rows.take(z), self._synth_gen, rows.take(c),
+                                    rows)
+        return rows.gather(img), rows.gather(ws)
+
+    def _mbstd_group(self):
+        """The minibatch-stddev group size a rank's rows must keep whole:
+        D's, where the walk runs D."""
+        return self.D.cfg.mbstd_group_size if self.D is not None and self.w_disc > 0 else 1
 
     def synthetize(self, ws, generator=None):
         """ws [B, num_ws, w_dim] -> image with random noise, drawn from
@@ -568,6 +601,21 @@ class LatentAugEngine:
             cache_tag += "-"
         cache_tag += f"{manifold_name}-step_{step}-maxitems_{num_items}"
         cache_file = os.path.join(cache_dir, cache_tag + ".pkl")
+        if self.mesh is None:
+            return self._compute_stats(dataset, manifold_name, cache_file, cache_tag,
+                                       num_items, step, mode_id)
+        # Under a mesh rank 0 builds (or finds) the cache file, and the
+        # others read it once it is written.
+        if pmesh.data_rank(self.mesh) == 0:
+            stats = self._compute_stats(dataset, manifold_name, cache_file, cache_tag,
+                                        num_items, step, mode_id)
+            pmesh.barrier(self.mesh)
+            return stats
+        pmesh.barrier(self.mesh)
+        return manifold.DatasetStats.load(cache_file)
+
+    def _compute_stats(self, dataset, manifold_name, cache_file, cache_tag, num_items, step,
+                       mode_id):
         # Crop stream seeded from (run seed, cache tag), as in the JAX engine.
         rng = random.Random(f"{self._seed}-{cache_tag}")
 

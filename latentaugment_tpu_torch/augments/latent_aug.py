@@ -7,8 +7,11 @@ concat, output split with optional lower-bound clip, latent accessors,
 per-batch wall times and the sanity_check PNG dumps. Data is NumPy at
 the API boundary (NCHW float32); the engine moves it to `--device`.
 `--gpu_ids_aug` is kept for the JAX package's command lines and selects
-nothing; `--n_mesh_devices` / `--n_model_devices` above 1 raise (the
-data- and tensor-parallel walk belongs to the DDP slice).
+nothing. `--n_mesh_devices N` (N > 1) walks data-parallel over N ranks,
+one process per device (started by torchrun, or joined before the policy
+is made): each rank walks its rows of the global batch and every rank
+gets the global output. `--n_model_devices` above 1 (tensor parallelism)
+raises: it is not ported yet.
 """
 
 import os
@@ -18,7 +21,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import mesh as pmesh
 from ..utils import util_path
 from . import engine as engine_mod
 from .base_aug import BaseAugment
@@ -52,8 +57,8 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--device', type=str, default='cuda', help='torch device of the walk (cuda, cuda:N or cpu); cuda without CUDA raises')
         parser.add_argument('--impl', type=str, default='auto', choices=['auto', 'ref'], help="ops: 'auto' runs the hand-written kernels on CUDA, 'ref' the plain PyTorch versions")
         parser.add_argument('--gpu_ids_aug', type=str, default='0', help='kept for command-line compatibility; --device selects the device')
-        parser.add_argument('--n_mesh_devices', type=int, default=0, help='shard the batch over this many devices (more than 1 needs the DDP slice, not ported yet)')
-        parser.add_argument('--n_model_devices', type=int, default=0, help='tensor parallelism over this many devices (more than 1 needs the DDP slice, not ported yet)')
+        parser.add_argument('--n_mesh_devices', type=int, default=0, help='shard the batch over this many ranks, one process per device (0 = single device); the process group must hold exactly this many (torchrun --nproc_per_node N)')
+        parser.add_argument('--n_model_devices', type=int, default=0, help='tensor parallelism over this many devices (more than 1 is not ported yet and raises)')
 
         # Common dataset options.
         parser.add_argument('--dataset_aug', help='', metavar='DIR', default="Pelvis_2.1_repo_no_mask")
@@ -96,12 +101,17 @@ class LatentAugment(BaseAugment):
         return parser
 
     def __init__(self, opt):
-        if max(getattr(opt, 'n_mesh_devices', 0), getattr(opt, 'n_model_devices', 0)) > 1:
-            raise NotImplementedError(
-                "--n_mesh_devices / --n_model_devices > 1 belong to the DDP slice, "
-                "which is not ported yet")
+        if (getattr(opt, 'n_model_devices', 0) or 0) > 1:
+            raise NotImplementedError(pmesh.TENSOR_PARALLEL)
         BaseAugment.__init__(self, opt)
         self.device = engine_mod.resolve_device(opt.device)
+        self.mesh = None
+        n_mesh = getattr(opt, 'n_mesh_devices', 0) or 0
+        if n_mesh > 1 and opt.phase == 'train':
+            if not dist.is_initialized():
+                pmesh.init_distributed(backend=pmesh.backend_for(self.device))
+            self.device = pmesh.rank_device(opt.device)
+            self.mesh = pmesh.get_mesh(n_mesh, devices=self.device)
         self.phase = opt.phase
         self.batch_size = opt.batch_size
         self.rand_aug = opt.rand_aug
@@ -124,7 +134,7 @@ class LatentAugment(BaseAugment):
                 opt.soft_aug = False
             self.latent_aug = engine_mod.define_latentaugment(
                 module_name='latent_aug', phase=opt.phase, opt=opt,
-                save_dir=self.save_dir, device=self.device)
+                save_dir=self.save_dir, device=self.device, mesh=self.mesh)
             self.stats_dataset_w = self.latent_aug.stats_dataset_w
             self.num_ws = self.latent_aug.num_ws
             self.w_dim = self.latent_aug.w_dim

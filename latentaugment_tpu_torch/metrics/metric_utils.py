@@ -9,7 +9,14 @@ models/vgg.py. Converted weights load from this package's URL cache
 (utils/util_url.py) when present; otherwise a seeded random init keeps
 the metric self-consistent. A conditional generator draws its labels
 from the training zip's labels (`dataset_kwargs` with `use_labels`) or
-uniformly. A device mesh belongs to a later slice and raises.
+uniformly.
+
+With `mesh=` (a DeviceMesh, one process per device) every rank reads the
+same images; each detector batch is padded to a multiple of the ranks,
+each rank runs the detector on its block of rows, and the features are
+gathered, so every rank accumulates the same statistics. The live
+generator draws z and noise for the whole batch on every rank and
+renders its rows.
 """
 
 import hashlib
@@ -24,6 +31,7 @@ import torch
 
 from ..augments.manifold import ImgDataset
 from ..models import inception, vgg
+from ..parallel import mesh as pmesh
 from ..utils import util_url
 from ..utils.util_easydict import EasyDict
 from ..utils.util_general import resolve_device
@@ -38,10 +46,14 @@ def format_time(seconds):
     return f"{s // 3600}h {(s // 60) % 60:02d}m"
 
 
-def require_no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "metrics over a device mesh belong to the DDP slice, which is not ported yet")
+def detect(detector, x, mesh=None):
+    """detector(x) [N, D]; under a mesh, each rank's block of the rows
+    (the batch padded to a multiple of the ranks), gathered."""
+    if mesh is None:
+        return detector(x)
+    padded, n = pmesh.pad_to_multiple(x, pmesh.world_size(mesh))
+    rows = pmesh.shard_rows(padded.shape[0], mesh)
+    return rows.gather(detector(rows.take(padded)))[:n]
 
 
 class MetricOptions:
@@ -55,7 +67,7 @@ class MetricOptions:
                  progress=None, cache=True, mode_dict=None, mesh=None):
         if not 0 <= rank < num_gpus:
             raise ValueError(f"rank {rank} outside [0, {num_gpus})")
-        require_no_mesh(mesh)
+        mesh = pmesh.check_mesh(mesh)
         self.G = G
         self.G_kwargs = EasyDict(G_kwargs or {})
         self.dataset_kwargs = EasyDict(dataset_kwargs or {})
@@ -297,7 +309,6 @@ def compute_feature_stats_for_dataset(opts, detector_url, mode_dict=None, rel_lo
     """Features of the real dataset. opts.dataset_kwargs describes a zip
     ImgDataset: {path, split, modalities, resolution}. Its images are raw
     [0,255] and go to the detector as they are."""
-    require_no_mesh(opts.mesh)
     dk = opts.dataset_kwargs
     dataset = ImgDataset(path=dk["path"], split=dk.get("split", "train"),
                          modalities=dk["modalities"], resolution=dk.get("resolution"))
@@ -320,7 +331,7 @@ def compute_feature_stats_for_dataset(opts, detector_url, mode_dict=None, rel_lo
     for lo in range(0, num_items, batch_size):
         x = np.stack([dataset[i][0] for i in range(lo, min(lo + batch_size, num_items))])
         x = torch.as_tensor(x, dtype=torch.float32, device=opts.device)
-        stats.append(detector(_select_mode(x, mode_idx)))
+        stats.append(detect(detector, _select_mode(x, mode_idx), opts.mesh))
         progress.update(stats.num_items)
 
     _cache_store(stats, cache_file)
@@ -331,7 +342,6 @@ def compute_feature_stats_for_aug_dataset(opts, detector_url, mode_dict=None, re
                                           rel_hi=1, max_items=None, **stats_kwargs):
     """Features of dumped augmented batches: `<dataroot>/img_aug/*` pickles
     of {'A', 'B'} batches in [-1, 1], dumped by this program's augmentation runs."""
-    require_no_mesh(opts.mesh)
     dkg = opts.dataset_kwargs_gen
     datadir = dkg["dataroot"]
     dataset_name = dkg.get("aug_name", os.path.basename(datadir))
@@ -372,7 +382,7 @@ def compute_feature_stats_for_aug_dataset(opts, detector_url, mode_dict=None, re
         with open(fname, "rb") as f:
             images = pickle.load(f)
         x = torch.as_tensor(np.asarray(images[key], np.float32), device=opts.device)
-        stats.append(detector(_to_detector_batch(x, None)))
+        stats.append(detect(detector, _to_detector_batch(x, None), opts.mesh))
         progress.update(stats.num_items)
         if stats.is_full():
             break
@@ -410,8 +420,8 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
                                         **stats_kwargs):
     """Features of live generator samples: opts.G(z) with random noise at
     G_kwargs['truncation_psi'], z and noise from one generator seeded with
-    G_kwargs['seed'] on G's device."""
-    require_no_mesh(opts.mesh)
+    G_kwargs['seed'] on G's device. Under a mesh each rank renders and
+    detects its rows of every batch (batch_gen a multiple of the ranks)."""
     G = opts.G
     c_dim = int(G.cfg.get("c_dim", 0) or 0)
     label_bank = _dataset_label_bank(opts, c_dim) if c_dim > 0 else None
@@ -440,8 +450,15 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
             elif c_dim > 0:
                 idx = torch.randint(0, c_dim, [batch_gen], generator=gen, device=device)
                 c = torch.nn.functional.one_hot(idx, c_dim).float()
-            img = G(z, c, truncation_psi=psi, noise_mode="random", generator=gen)
-        stats.append(detector(_to_detector_batch(img.float(), mode_idx)))
+            if opts.mesh is None:
+                img = G(z, c, truncation_psi=psi, noise_mode="random", generator=gen)
+                feats = detector(_to_detector_batch(img.float(), mode_idx))
+            else:
+                rows = pmesh.shard_rows(batch_gen, opts.mesh)
+                img = G(rows.take(z), rows.take(c), truncation_psi=psi, noise_mode="random",
+                        generator=gen, rows=rows)
+                feats = rows.gather(detector(_to_detector_batch(img.float(), mode_idx)))
+        stats.append(feats)
         progress.update(stats.num_items)
     return stats
 

@@ -3,12 +3,15 @@ latentaugment_tpu/metrics/precision_recall.py): pairwise Euclidean
 distances in tiles on the device, the k-th neighbour radius per manifold
 row, and a probe accepted if it lies within any manifold row's radius.
 The distance tiles are float32 matrix products; this module never turns
-TF32 on.
+TF32 on. Under a mesh each rank computes the tiles of its block of rows
+(the rows padded to a multiple of the ranks) and every rank gathers the
+whole matrix.
 """
 
 import numpy as np
 import torch
 
+from ..parallel import mesh as pmesh
 from . import metric_utils
 
 DETECTOR_URL = ('https://api.ngc.nvidia.com/v2/models/nvidia/research/'
@@ -27,15 +30,24 @@ def compute_distances(row_features, col_features, col_batch_size=10000,
                       device="cuda", mesh=None):
     """Chunked distance matrix [rows, cols] of two host arrays: tiles on
     `device` ('cuda' unless given; cuda without CUDA raises), assembled on
-    the host."""
-    metric_utils.require_no_mesh(mesh)
+    the host. Under a mesh each rank computes its block of rows."""
+    mesh = pmesh.check_mesh(mesh)
     device = metric_utils.resolve_device(device)
     rows = torch.as_tensor(np.asarray(row_features, np.float32), device=device)
+    n = rows.shape[0]
+    shard = None
+    if mesh is not None:
+        rows, _ = pmesh.pad_to_multiple(rows, pmesh.world_size(mesh))
+        shard = pmesh.shard_rows(rows.shape[0], mesh)
+        rows = shard.take(rows)
     out = []
     for lo in range(0, col_features.shape[0], col_batch_size):
         cols = torch.as_tensor(np.asarray(col_features[lo:lo + col_batch_size], np.float32),
                                device=device)
-        out.append(_dist_tile(rows, cols).cpu().numpy())
+        tile = _dist_tile(rows, cols)
+        if shard is not None:
+            tile = shard.gather(tile)[:n]
+        out.append(tile.cpu().numpy())
     return np.concatenate(out, axis=1)
 
 

@@ -298,12 +298,14 @@ class SynthesisNetwork(nn.Module):
             setattr(self, f'b{res}', SynthesisBlock(gen, cfg, res))
         self.register_buffer('resample_filter', setup_filter([1, 3, 3, 1], separable=True))
 
-    def forward(self, ws, noise_mode='const', generator=None, remat=False):
+    def forward(self, ws, noise_mode='const', generator=None, remat=False, rows=None):
         """ws [N, num_ws, w_dim] -> image [N, img_channels, res, res] (skip
         architecture). remat checkpoints blocks (bool = all, int = blocks
         with res >= remat): the backward recomputes their activations.
         Random noise is drawn from `generator` before each block, so that a
-        recomputed block sees the same noise."""
+        recomputed block sees the same noise. Under data parallelism `rows`
+        (parallel.mesh.Rows) says which rows of a global batch ws holds:
+        the noise is drawn for the global batch and its rows taken."""
         cfg = self.cfg
         f = self.resample_filter
         fp16 = _fp16_resolutions(cfg)
@@ -315,8 +317,9 @@ class SynthesisNetwork(nn.Module):
             n_conv = 1 if res == 4 else 2
             noises = None
             if noise_mode == 'random':
-                noises = tuple(torch.randn([ws.shape[0], 1, res, res], generator=generator,
-                                           device=ws.device, dtype=dtype)
+                draw = torch.randn if rows is None else rows.randn
+                noises = tuple(draw([ws.shape[0], 1, res, res], generator=generator,
+                                    device=ws.device, dtype=dtype)
                                for _ in range(n_conv))
             args = (x, ws[:, w_idx:w_idx + n_conv + 1], f, dtype, noise_mode, noises)
             if _want_remat(remat, res) and torch.is_grad_enabled():
@@ -340,9 +343,10 @@ class Generator(nn.Module):
         self.synthesis = SynthesisNetwork(gen, cfg)
         set_impl(self, impl)
 
-    def forward(self, z, c=None, truncation_psi=1.0, noise_mode='const', generator=None):
+    def forward(self, z, c=None, truncation_psi=1.0, noise_mode='const', generator=None,
+                rows=None):
         ws = self.mapping(z, c, truncation_psi=truncation_psi)
-        return self.synthesis(ws, noise_mode=noise_mode, generator=generator)
+        return self.synthesis(ws, noise_mode=noise_mode, generator=generator, rows=rows)
 
 
 # ----------------------------------------------------------------------------

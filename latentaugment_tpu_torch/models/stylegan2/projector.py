@@ -70,12 +70,16 @@ def make_project_fn(g_cfg, num_steps=1000, initial_lr=0.1, initial_noise_factor=
                     lr_rampdown_length=0.25, lr_rampup_length=0.05,
                     noise_ramp_length=0.75, pix_weight=0.0, remat=False,
                     checkpoint_feats=False):
-    """Returns project(G, vgg_params, target, w_avg, w_std, generator)
+    """Returns project(G, vgg_params, target, w_avg, w_std, generator, rows=None)
     -> (w_opt [B,1,w_dim], dists [num_steps]).
 
     target: [B, n_modes, res, res] in [-1, 1] on G's device. `generator`
     draws the exploration noise (a torch.Generator on that device; it may
-    be None when initial_noise_factor is 0)."""
+    be None when initial_noise_factor is 0). Under data parallelism
+    `rows` (parallel.mesh.Rows) says which rows of the global batch
+    `target` holds: the noise is drawn for the global batch, each rank's
+    distance is its share of the global mean (so each w descends as in
+    one process), and `dists` are the global batch's."""
     num_ws = g_cfg.num_ws
     n_modes = g_cfg.img_channels
     num_steps = int(num_steps)
@@ -93,7 +97,10 @@ def make_project_fn(g_cfg, num_steps=1000, initial_lr=0.1, initial_noise_factor=
             return checkpoint(perceptual, vgg_params, x, use_reentrant=False)
         return perceptual(vgg_params, x)
 
-    def project(G, vgg_params, target, w_avg, w_std, generator=None):
+    def batch_mean(x, rows):
+        return x.mean() if rows is None else rows.mean(x)
+
+    def project(G, vgg_params, target, w_avg, w_std, generator=None, rows=None):
         batch = target.shape[0]
         with torch.no_grad():
             target_feats = perceptual(vgg_params, target)
@@ -107,17 +114,22 @@ def make_project_fn(g_cfg, num_steps=1000, initial_lr=0.1, initial_noise_factor=
                 w_leaf = w.detach().requires_grad_(True)
                 wn = w_leaf
                 if noise > 0.0:
-                    wn = w_leaf + torch.randn(w.shape, generator=generator,
-                                              device=w.device) * (w_std * noise)
+                    draw = torch.randn if rows is None else rows.randn
+                    wn = w_leaf + draw(w.shape, generator=generator,
+                                       device=w.device) * (w_std * noise)
                 x = G.synthesis(wn.repeat(1, num_ws, 1), noise_mode="const", remat=remat)
                 f = feats_of(vgg_params, x.float())
-                dist = (f - target_feats).square().reshape(batch, -1).sum(dim=-1).mean()
+                dist = batch_mean((f - target_feats).square().reshape(batch, -1).sum(dim=-1),
+                                  rows)
                 if pix_weight > 0.0:
-                    dist = dist + pix_weight * (x.float() - target).square().mean()
+                    sq = (x.float() - target).square()
+                    dist = dist + pix_weight * (sq.mean() if rows is None else
+                                                rows.mean(sq.reshape(batch, -1).mean(dim=1)))
                 g, = torch.autograd.grad(dist, w_leaf)
             w, m, v = adam_step(w, m, v, g, t, lr)
             dists.append(dist.detach())
-        return w, torch.stack(dists)
+        dists = torch.stack(dists)
+        return w, (dists if rows is None else rows.sum(dists))
 
     return project
 

@@ -29,6 +29,18 @@ policy) needs nothing from outside the port.
 The state is a dict of modules and optimizers: G, D, G_ema, opt_g, opt_d
 and pl_mean. The phase functions update it in place and return it with
 their logs (device scalars), as `state, logs = fns.g_main(state, ...)`.
+
+Data parallelism (`mesh=`, parallel/mesh.py, one process per device):
+every rank holds the same state and receives the same global batch and
+z; each phase computes its rows (`shard_rows`, minibatch-stddev groups
+whole on one rank), draws every random number for the global batch and
+takes its rows, scales its batch means by n_local / n, and all-reduces
+the gradients by hand over one flattened buffer after each backward (as
+NVIDIA's training loop does; DistributedDataParallel's hooks do not
+serve R1's and path length's create_graph gradients). The path-length
+mean, r_t and the mean w are reduced over all ranks, so every rank takes
+the same Adam step and G_ema stays identical. Rank 0 writes the logs,
+snapshots and training states; the others wait at a barrier.
 """
 
 import copy
@@ -41,10 +53,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel import mesh as pmesh
 from ...utils.util_easydict import EasyDict
 from ...utils.util_general import resolve_device
 from . import checkpoint, networks
-from .ada import AdaController, apply_ada, pipe_config
+from .ada import AdaController, apply_ada, apply_ada_draws, draw_ada, pipe_config
 
 TRAINING_STATE_FORMAT = 1
 
@@ -91,12 +104,23 @@ def _adjusted_adam(params, lr, beta1, beta2, eps, reg_interval):
                             eps=eps)
 
 
-def _grads(loss, module):
+def _grads(loss, module, rows=None):
     """d loss / d parameters of `module`, in `module.parameters()` order;
-    zeros for a parameter the loss does not reach."""
+    zeros for a parameter the loss does not reach. Under data parallelism
+    (`rows`) the ranks' gradients are summed in one flattened buffer."""
     params = list(module.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    if rows is None:
+        return grads
+    flat = rows.sum(torch.cat([g.reshape(-1) for g in grads]))
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def _bmean(x, rows):
+    """The mean of x over its batch (all entries); under data parallelism
+    the rank's share of the global batch's mean."""
+    return x.mean() if rows is None else x.sum() / (rows.n * (x.numel() // rows.n_local))
 
 
 def _apply(opt, module, grads):
@@ -106,7 +130,7 @@ def _apply(opt, module, grads):
     opt.zero_grad(set_to_none=True)
 
 
-def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
+def make_train_fns(g_cfg, d_cfg, cfg, device='cuda', mesh=None):
     """The phase functions. Returns an EasyDict:
 
       init_state(seed) -> state (random G and D drawn from the seed)
@@ -121,11 +145,20 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
     and r1_value_and_grads, as the JAX trainer exposes them. `gen` is a
     torch.Generator on `device`, `p` the ADA probability (float or device
     scalar). `device` is 'cuda' unless the caller names the CPU.
+
+    With `mesh` (a DeviceMesh), the phases take the global batch (real,
+    z, z2, c) on every rank and compute this rank's rows of it; the loss
+    functions then take this rank's rows and their `rows`.
     """
     cfg = EasyDict(cfg)
     if cfg.r1_gamma is None:
         cfg.r1_gamma = 0.0002 * (g_cfg.img_resolution ** 2) / cfg.batch_size
     dev = resolve_device(device)
+    mesh = pmesh.check_mesh(mesh)
+    if mesh is not None and int(cfg.r1_chunks) > 1:
+        raise ValueError("r1_chunks > 1 under a mesh: each rank's R1 batch is already "
+                         "its share of the global one")
+    mbstd = d_cfg.mbstd_group_size
     aug_cfg = None if cfg.aug == 'noaug' else pipe_config(cfg.aug_pipe)
     num_ws = g_cfg.num_ws
 
@@ -152,12 +185,23 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
         D.load_state_dict(checkpoint.params_to_state_dict(d_params))
         return _state(G, D, pl_mean)
 
-    def _maybe_aug(img, gen, p):
-        return img if aug_cfg is None else apply_ada(img, gen, p, aug_cfg)
+    def _maybe_aug(img, gen, p, rows=None):
+        if aug_cfg is None:
+            return img
+        if rows is None:
+            return apply_ada(img, gen, p, aug_cfg)
+        # The global batch's draws, this rank's rows of them.
+        draws = draw_ada(gen, (rows.n, *img.shape[1:]), p, aug_cfg)
+        return apply_ada_draws(img, {k: tuple(rows.take(t) for t in v)
+                                     for k, v in draws.items()}, aug_cfg)
 
-    def _map_mix(G, z, z2, c, gen):
-        """Mapping + batch-level style mixing -> (ws, the batch's mean w).
-        One cutoff per batch, drawn on the device, as a num_ws mask."""
+    def _rows(n, group_size=1):
+        return None if mesh is None else pmesh.shard_rows(n, mesh, group_size)
+
+    def _map_mix(G, z, z2, c, gen, rows=None):
+        """Mapping + batch-level style mixing -> (ws, the batch's mean w;
+        under data parallelism this rank's share of it). One cutoff per
+        batch, drawn on the device, as a num_ws mask."""
         w1 = G.mapping(z, c, broadcast=False)
         ws = w1[:, None, :].repeat(1, num_ws, 1)
         if cfg.style_mixing_prob > 0:
@@ -167,66 +211,75 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
             cutoff = torch.where(gate, cutoff, num_ws)
             mix = torch.arange(num_ws, device=dev)[None, :, None] >= cutoff
             ws = torch.where(mix, w2[:, None, :], ws)
-        return ws, w1.detach().mean(dim=0)
+        w1 = w1.detach()
+        return ws, (w1.mean(dim=0) if rows is None else rows.mean(w1))
 
-    def _synth(G, ws, gen):
+    def _synth(G, ws, gen, rows=None):
         return G.synthesis(ws, noise_mode=cfg.noise_mode,
                            generator=gen if cfg.noise_mode == 'random' else None,
-                           remat=cfg.remat)
+                           remat=cfg.remat, rows=rows)
 
     # ---- phase losses ---------------------------------------------------
-    def loss_g_main(G, D, z, z2, c, gen, p):
+    # Under data parallelism (`rows`) z, z2, c, real are this rank's rows
+    # and each mean is the rank's share of the global batch's.
+    def loss_g_main(G, D, z, z2, c, gen, p, rows=None):
         """Non-saturating logistic G loss: E[softplus(-D(aug(G(z))))]."""
-        ws, w_mean = _map_mix(G, z, z2, c, gen)
-        img = _synth(G, ws, gen)
-        logits = D(_maybe_aug(img, gen, p), c, remat=cfg.remat)
-        return F.softplus(-logits).mean(), w_mean
+        ws, w_mean = _map_mix(G, z, z2, c, gen, rows)
+        img = _synth(G, ws, gen, rows)
+        logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat)
+        return _bmean(F.softplus(-logits), rows), w_mean
 
-    def loss_g_pl(G, pl_mean, z, z2, c, gen, pl_noise=None):
+    def loss_g_pl(G, pl_mean, z, z2, c, gen, pl_noise=None, rows=None):
         """Path-length penalty (lazy: x g_reg_interval folded in).
-        `pl_noise` (already divided by sqrt(H * W)) is drawn from `gen`
-        when not given."""
-        ws, _ = _map_mix(G, z, z2, c, gen)
-        img = _synth(G, ws, gen)
+        `pl_noise` (already divided by sqrt(H * W); the local rows under
+        data parallelism) is drawn from `gen` when not given."""
+        ws, _ = _map_mix(G, z, z2, c, gen, rows)
+        img = _synth(G, ws, gen, rows)
         if pl_noise is None:
-            pl_noise = torch.randn(img.shape, generator=gen, device=dev) \
+            draw = torch.randn if rows is None else rows.randn
+            pl_noise = draw(img.shape, generator=gen, device=dev) \
                 / np.sqrt(img.shape[2] * img.shape[3])
         pl_grads, = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
         pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
-        new_pl_mean = pl_mean + cfg.pl_decay * (pl_lengths.detach().mean() - pl_mean)
+        batch_mean = pl_lengths.detach().mean() if rows is None \
+            else rows.sum(rows.mean(pl_lengths.detach()))
+        new_pl_mean = pl_mean + cfg.pl_decay * (batch_mean - pl_mean)
         pl_penalty = (pl_lengths - new_pl_mean).square()
-        loss = pl_penalty.mean() * cfg.pl_weight * cfg.g_reg_interval
+        loss = _bmean(pl_penalty, rows) * cfg.pl_weight * cfg.g_reg_interval
         return loss, (new_pl_mean, pl_lengths.detach())
 
-    def loss_d_main(D, G, real, z, z2, c, gen, p):
+    def loss_d_main(D, G, real, z, z2, c, gen, p, rows=None):
         """D logistic loss on fakes and reals (both through the ADA pipe);
         r_t = E[sign(D(real))] feeds the ADA controller."""
         with torch.no_grad():
-            ws, _ = _map_mix(G, z, z2, c, gen)
-            img = _synth(G, ws, gen)
-        gen_logits = D(_maybe_aug(img, gen, p), c, remat=cfg.remat)
-        real_logits = D(_maybe_aug(real, gen, p), c, remat=cfg.remat)
-        loss_gen = F.softplus(gen_logits).mean()
-        loss_real = F.softplus(-real_logits).mean()
-        rt = torch.sign(real_logits.detach()).mean()
+            ws, _ = _map_mix(G, z, z2, c, gen, rows)
+            img = _synth(G, ws, gen, rows)
+        gen_logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat)
+        real_logits = D(_maybe_aug(real, gen, p, rows), c, remat=cfg.remat)
+        loss_gen = _bmean(F.softplus(gen_logits), rows)
+        loss_real = _bmean(F.softplus(-real_logits), rows)
+        rt = _bmean(torch.sign(real_logits.detach()), rows)
         return loss_gen + loss_real, (loss_gen.detach(), loss_real.detach(), rt)
 
-    def loss_d_r1(D, aug_real, c):
+    def loss_d_r1(D, aug_real, c, rows=None):
         """R1 penalty on the (already augmented) reals (lazy: x
         d_reg_interval and gamma / 2 folded in) -> (loss, mean penalty)."""
         img = aug_real.detach().requires_grad_(True)
         logits = D(img, c, remat=cfg.remat)
         r1_grads, = torch.autograd.grad(logits.sum(), img, create_graph=True)
-        penalty = r1_grads.square().sum(dim=[1, 2, 3])
-        loss = penalty.mean() * (cfg.r1_gamma / 2.0) * cfg.d_reg_interval
-        return loss, penalty.mean()
+        penalty = _bmean(r1_grads.square().sum(dim=[1, 2, 3]), rows)
+        loss = penalty * (cfg.r1_gamma / 2.0) * cfg.d_reg_interval
+        return loss, penalty
 
-    def r1_value_and_grads(D, aug_real, c):
+    def r1_value_and_grads(D, aug_real, c, rows=None):
         """((loss, penalty), grads of D's parameters) of the R1 term, in
         cfg.r1_chunks sequential sub-batches when > 1: one sub-batch's
         double-backward graph at a time. The mean over equal chunks is the
         full batch's value, except that minibatch-stddev groups form
         within a chunk."""
+        if rows is not None:
+            (loss, penalty) = loss_d_r1(D, aug_real, c, rows)
+            return (loss.detach(), penalty.detach()), _grads(loss, D, rows)
         n_chunks = int(cfg.r1_chunks)
         if aug_real.shape[0] % n_chunks != 0:
             raise ValueError(f"r1_chunks={n_chunks} must divide the R1 batch "
@@ -245,37 +298,61 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
         return (loss, penalty), grads
 
     # ---- phases ---------------------------------------------------------
+    # Each takes the global batch; under a mesh, this rank's rows of it.
+    def _summed(logs, rows):
+        """Logs of a phase: under a mesh, the ranks' shares summed (one
+        all-reduce for all of them)."""
+        if rows is None:
+            return logs
+        names = list(logs)
+        vals = rows.sum(torch.stack([logs[k].float().reshape(()) for k in names]))
+        return dict(zip(names, vals))
+
     def g_main(state, z, z2, c, gen, p):
-        loss, w_mean = loss_g_main(state.G, state.D, z, z2, c, gen, p)
-        _apply(state.opt_g, state.G, _grads(loss, state.G))
+        rows = _rows(z.shape[0], mbstd)
+        if rows is not None:
+            z, z2, c = rows.take(z), rows.take(z2), rows.take(c)
+        loss, w_mean = loss_g_main(state.G, state.D, z, z2, c, gen, p, rows)
+        _apply(state.opt_g, state.G, _grads(loss, state.G, rows))
+        if rows is not None:
+            w_mean = rows.sum(w_mean)
         with torch.no_grad():
             w_avg = state.G.mapping.w_avg
             w_avg.copy_(w_mean + (w_avg - w_mean) * cfg.w_avg_beta)
-        return state, {'Loss/G/loss': loss.detach()}
+        return state, _summed({'Loss/G/loss': loss.detach()}, rows)
 
     def g_reg(state, z, z2, c, gen, p):
         del p  # path length never sees D or the augmentation pipe
         # The caller has already shrunk the batch (pl_batch_shrink).
-        loss, (new_pl_mean, _) = loss_g_pl(state.G, state.pl_mean, z, z2, c, gen)
-        _apply(state.opt_g, state.G, _grads(loss, state.G))
+        rows = _rows(z.shape[0])
+        if rows is not None:
+            z, z2, c = rows.take(z), rows.take(z2), rows.take(c)
+        loss, (new_pl_mean, _) = loss_g_pl(state.G, state.pl_mean, z, z2, c, gen, rows=rows)
+        _apply(state.opt_g, state.G, _grads(loss, state.G, rows))
         state.pl_mean = new_pl_mean.detach()
-        return state, {'Loss/pl_penalty': loss.detach()}
+        return state, _summed({'Loss/pl_penalty': loss.detach()}, rows)
 
     def d_main(state, real, z, z2, c, gen, p):
+        rows = _rows(z.shape[0], mbstd)
+        if rows is not None:
+            real, z, z2, c = rows.take(real), rows.take(z), rows.take(z2), rows.take(c)
         loss, (loss_gen, loss_real, rt) = loss_d_main(state.D, state.G, real, z, z2, c,
-                                                      gen, p)
-        _apply(state.opt_d, state.D, _grads(loss, state.D))
-        return state, {'Loss/D/gen': loss_gen, 'Loss/D/real': loss_real,
-                       'Progress/rt': rt}
+                                                      gen, p, rows)
+        _apply(state.opt_d, state.D, _grads(loss, state.D, rows))
+        return state, _summed({'Loss/D/gen': loss_gen, 'Loss/D/real': loss_real,
+                               'Progress/rt': rt}, rows)
 
     def d_reg(state, real, c, gen, p):
+        rows = _rows(real.shape[0], mbstd)
+        if rows is not None:
+            real, c = rows.take(real), rows.take(c)
         # R1 penalises D's gradient at the image D sees: the augmented
         # real, augmented outside the penalty's gradient.
         with torch.no_grad():
-            aug_real = _maybe_aug(real, gen, p)
-        (loss, penalty), grads = r1_value_and_grads(state.D, aug_real, c)
+            aug_real = _maybe_aug(real, gen, p, rows)
+        (loss, penalty), grads = r1_value_and_grads(state.D, aug_real, c, rows)
         _apply(state.opt_d, state.D, grads)
-        return state, {'Loss/r1_penalty': penalty, 'Loss/D/reg': loss}
+        return state, _summed({'Loss/r1_penalty': penalty, 'Loss/D/reg': loss}, rows)
 
     def ema(state, beta):
         """G_ema: parameters lerped toward G (ema = g + (ema - g) * beta),
@@ -287,11 +364,11 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda'):
                 e.copy_(g)
         return state
 
-    return EasyDict(cfg=cfg, device=dev, init_state=init_state,
+    return EasyDict(cfg=cfg, device=dev, mesh=mesh, init_state=init_state,
                     state_from_params=state_from_params,
                     loss_g_main=loss_g_main, loss_g_pl=loss_g_pl,
                     loss_d_main=loss_d_main, loss_d_r1=loss_d_r1,
-                    r1_value_and_grads=r1_value_and_grads,
+                    r1_value_and_grads=r1_value_and_grads, grads=_grads,
                     g_main=g_main, g_reg=g_reg, d_main=d_main, d_reg=d_reg, ema=ema)
 
 
@@ -356,7 +433,7 @@ def _to_device(a, dev):
 
 def train_loop(g_cfg, d_cfg, data_iter, cfg, *, total_kimg=25000, run_dir=None, seed=0,
                snapshot_kimg=50, log_every=10, callbacks=None, state=None,
-               on_snapshot=None, resume_state=None, keep_states=2, device='cuda'):
+               on_snapshot=None, resume_state=None, keep_states=2, device='cuda', mesh=None):
     """Drive the phase schedule. `data_iter` yields (real images
     [B, C, H, W] float32 in [-1, 1], labels [B, c_dim] or None) on the host.
 
@@ -367,9 +444,18 @@ def train_loop(g_cfg, d_cfg, data_iter, cfg, *, total_kimg=25000, run_dir=None, 
     interrupted run exactly: G, D, G_ema, both Adams, pl_mean, the
     counters, the device generator and the ADA controller are restored;
     only the data iterator starts again.
+
+    Under a `mesh` every rank runs this loop on the same global batch
+    stream (each rank's data_iter yields the same batches) and computes
+    its rows; the state stays identical on every rank (rank 0's
+    parameters are broadcast at the start). Rank 0 writes log.jsonl,
+    snapshots and training states, and every rank waits for them at a
+    barrier before `on_snapshot` runs or anyone reads them.
     """
     cfg = EasyDict(cfg)
-    fns = make_train_fns(g_cfg, d_cfg, cfg, device=device)
+    fns = make_train_fns(g_cfg, d_cfg, cfg, device=device, mesh=mesh)
+    mesh = fns.mesh
+    writer = mesh is None or pmesh.data_rank(mesh) == 0
     dev = fns.device
     data_iter = prefetch_iter(data_iter, depth=2)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -398,9 +484,12 @@ def train_loop(g_cfg, d_cfg, data_iter, cfg, *, total_kimg=25000, run_dir=None, 
                   f"{saved_batch}; the continuation is no longer step-exact")
     if state is None:
         state = fns.init_state(seed)
+    if mesh is not None:
+        for name in ('G', 'D', 'G_ema'):
+            pmesh.broadcast_module(state[name], mesh)
 
-    log_path = os.path.join(run_dir, 'log.jsonl') if run_dir else None
-    if run_dir:
+    log_path = os.path.join(run_dir, 'log.jsonl') if run_dir and writer else None
+    if run_dir and writer:
         os.makedirs(run_dir, exist_ok=True)
 
     t_start = time.time()
@@ -442,7 +531,8 @@ def train_loop(g_cfg, d_cfg, data_iter, cfg, *, total_kimg=25000, run_dir=None, 
             row = {k: float(v) for k, v in logs_acc.items()}
             row.update(step=step, kimg=cur_nimg / 1000.0, aug_p=p,
                        sec=round(time.time() - t_start, 3))
-            print('[train] ' + json.dumps(row))
+            if writer:
+                print('[train] ' + json.dumps(row))
             if log_path:
                 with open(log_path, 'a') as f:
                     f.write(json.dumps(row) + '\n')
@@ -461,19 +551,27 @@ def train_loop(g_cfg, d_cfg, data_iter, cfg, *, total_kimg=25000, run_dir=None, 
                 # Mid-window snapshot: fold the deferred r_t values in, so
                 # that the saved controller is the eager one at this step.
                 p = _flush_ada(ada, ada_pending, cfg.batch_size)
-            snap_path = save_snapshot(run_dir, state, cur_nimg)
-            save_training_state(run_dir, state, g_cfg=g_cfg, d_cfg=d_cfg, cfg=cfg,
-                                cur_nimg=cur_nimg, step=step, gen=gen, p=p, ada=ada,
-                                keep=keep_states)
+            snap_path = snapshot_path(run_dir, cur_nimg)
+            if writer:
+                save_snapshot(run_dir, state, cur_nimg)
+                save_training_state(run_dir, state, g_cfg=g_cfg, d_cfg=d_cfg, cfg=cfg,
+                                    cur_nimg=cur_nimg, step=step, gen=gen, p=p, ada=ada,
+                                    keep=keep_states)
+            if mesh is not None:
+                pmesh.barrier(mesh)  # rank 0's files exist before anyone reads them
             if on_snapshot is not None:
                 on_snapshot(snap_path, state, cur_nimg)
     return state
 
 
+def snapshot_path(run_dir, cur_nimg):
+    return os.path.join(run_dir, f'network-snapshot-{int(cur_nimg // 1000):06d}.pkl')
+
+
 def save_snapshot(run_dir, state, cur_nimg):
     """Native checkpoint of G_ema and D, which the port's policy and
     projector and the JAX package's loader read."""
-    path = os.path.join(run_dir, f'network-snapshot-{int(cur_nimg // 1000):06d}.pkl')
+    path = snapshot_path(run_dir, cur_nimg)
     checkpoint.save_checkpoint(path, G=state.G_ema, D=state.D)
     return path
 

@@ -266,14 +266,15 @@ class SynthesisNetwork(nn.Module):
         for layer in cfg.layers:
             setattr(self, layer.name, SynthesisLayer(gen, cfg, layer))
 
-    def forward(self, ws, noise_mode='const', generator=None, remat=False, transform=None):
+    def forward(self, ws, noise_mode='const', generator=None, remat=False, transform=None,
+                rows=None):
         """ws [N, num_ws, w_dim] -> image [N, img_channels, res, res].
 
-        noise_mode/generator are accepted for StyleGAN2 call-site
-        compatibility and ignored. remat checkpoints layers (bool = all,
-        int = layers whose out_size >= remat). `transform` overrides the
-        stored global input transform."""
-        del noise_mode, generator
+        noise_mode/generator/rows are accepted for StyleGAN2 call-site
+        compatibility and ignored (this generator draws no noise). remat
+        checkpoints layers (bool = all, int = layers whose out_size >=
+        remat). `transform` overrides the stored global input transform."""
+        del noise_mode, generator, rows
         cfg = self.cfg
         if ws.shape[1] != cfg.num_ws:
             raise ValueError(f"ws has {ws.shape[1]} layers, the generator takes {cfg.num_ws}")
@@ -307,7 +308,7 @@ class Generator(nn.Module):
         set_impl(self, impl)
 
     def forward(self, z, c=None, truncation_psi=1.0, noise_mode='const', generator=None,
-                transform=None):
+                transform=None, rows=None):
         ws = self.mapping(z, c, truncation_psi=truncation_psi)
         return self.synthesis(ws, noise_mode=noise_mode, generator=generator,
                               transform=transform)

@@ -1,0 +1,340 @@
+"""Data parallelism across processes (counterpart:
+latentaugment_tpu/parallel/mesh.py).
+
+The JAX package runs data parallelism from one process over a `Mesh`
+with a 'data' axis: GSPMD shards the batch, and a global batch goes in
+and comes out. The port keeps that contract with one process (rank) per
+device:
+
+  * every rank is built the same way from the same seed (and
+    `broadcast_module` makes parameters equal to rank 0's where a caller
+    wants that guaranteed);
+  * every rank receives the same global batch;
+  * each rank computes its own rows (`shard_rows`);
+  * every rank returns the global result (`Rows.gather`, `Rows.sum`).
+
+Random draws of a batch (noise, augmentation parameters) are made for the
+whole global batch on every rank, which then takes its rows, so the
+generators stay in step and a run over N ranks is the one-process run.
+
+A minibatch-stddev layer (the discriminator's epilogue) couples samples
+j, j + n/g, j + 2n/g, ... of a batch of n in groups of g. `shard_rows`
+with `group_size` g hands each rank whole groups, ordered so that its
+local reshape forms exactly the global groups; no collective is needed
+inside D.
+
+Collectives go through the group of the mesh's data axis: NCCL with one
+rank per card in production; gloo on the CPU, and for two ranks on one
+card (a check, not a deployment: NCCL refuses two ranks on one device),
+where gloo runs all_reduce, broadcast and all_gather on the card's
+tensors through host memory itself (chip_smoke phase 18 probes which
+collectives it takes). Tensor parallelism (`n_model > 1`, the JAX
+package's 'model' axis) is not ported yet and raises.
+"""
+
+import datetime
+import os
+import socket
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TENSOR_PARALLEL = ("tensor parallelism (n_model > 1, the 'model' axis of the JAX package's "
+                   "parallel/mesh.py:100-133) is the port's next slice and is not ported yet")
+
+
+def backend_for(device):
+    """The collective backend for ranks on `device`: nccl on CUDA, gloo
+    on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def init_distributed(coordinator_address=None, num_processes=None, process_id=None,
+                     backend="nccl", timeout_s=600):
+    """Join the process group of `num_processes` ranks as rank `process_id`,
+    meeting at `coordinator_address` ('host:port' or a URL such as
+    'tcp://host:port'). Without arguments, torchrun's environment
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) names them. A group that
+    does not form raises; nothing runs on alone. Returns (rank, world size)."""
+    if dist.is_initialized():
+        raise RuntimeError("the process group is already initialized")
+    if coordinator_address is None:
+        missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+                   if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"init_distributed without a coordinator address reads torchrun's "
+                f"environment, and {missing} are not set: start the program with "
+                "torchrun --nproc_per_node N, or pass the address, count and rank")
+        where = dict(init_method="env://")
+    else:
+        where = dict(init_method=(coordinator_address if "://" in coordinator_address
+                                  else f"tcp://{coordinator_address}"),
+                     world_size=int(num_processes), rank=int(process_id))
+    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout_s), **where)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def rank_device(name="cuda"):
+    """This rank's device for `--device name`: a bare 'cuda' becomes the
+    card of the rank's LOCAL_RANK (torchrun) or global rank, modulo the
+    cards present; an explicit 'cuda:N' or 'cpu' is kept."""
+    device = torch.device(name)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    return device
+
+
+def get_mesh(n_devices=None, devices=None, n_model=1):
+    """A 1-D DeviceMesh with the dim name 'data' over the process group's
+    ranks. `devices` lists one device per rank (e.g. ['cuda:0', 'cuda:0']
+    places two ranks on one card) or names this rank's; by default each
+    rank takes `rank_device()`. The data axis spans every rank: `n_devices` must be
+    the world size."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if n_model and n_model > 1:
+        raise NotImplementedError(TENSOR_PARALLEL)
+    if not dist.is_initialized():
+        raise RuntimeError("get_mesh needs the process group: call init_distributed first "
+                           "(or start under torchrun)")
+    world = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != world:
+        raise ValueError(f"a data axis of {n_devices} ranks, but the process group has "
+                         f"{world}: start one process per device")
+    device = _this_device(devices)
+    return DeviceMesh(device.type, list(range(world)), mesh_dim_names=("data",))
+
+
+def get_hybrid_mesh(n_slices, per_slice=None, devices=None):
+    """A 2-D ('dcn', 'data') DeviceMesh over every rank: the outer axis
+    across hosts (or slices), the inner one within. The batch shards over
+    both: the data group of such a mesh is the whole group (`data_group`)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    if per_slice is None:
+        if world % n_slices:
+            raise ValueError(f"n_slices={n_slices} must divide {world} ranks")
+        per_slice = world // n_slices
+    if n_slices * per_slice != world:
+        raise ValueError(f"a {n_slices}x{per_slice} mesh over {world} ranks: the batch "
+                         "axis spans every rank")
+    device = _this_device(devices)
+    ranks = np.arange(world).reshape(n_slices, per_slice).tolist()
+    return DeviceMesh(device.type, ranks, mesh_dim_names=("dcn", "data"))
+
+
+def _this_device(devices):
+    """This rank's device: `devices[rank]` of a per-rank list, a single
+    device as given, or by default `rank_device()` of the CUDA cards (the
+    CPU where there is none)."""
+    if devices is None:
+        device = rank_device("cuda" if torch.cuda.is_available() else "cpu")
+    elif isinstance(devices, (list, tuple)):
+        device = torch.device(devices[dist.get_rank()])
+    else:
+        device = torch.device(devices)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def check_mesh(mesh):
+    """`mesh` as the port's parallel paths take it: None (one process) or
+    a DeviceMesh whose axes carry the batch; a 'model' axis raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh is None:
+        return None
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh (parallel.mesh.get_mesh), "
+                        f"got {type(mesh).__name__}")
+    if "model" in (mesh.mesh_dim_names or ()):
+        raise NotImplementedError(TENSOR_PARALLEL)
+    return mesh
+
+
+def _rank_entry(rank, fn, n, port, backend, args):
+    init_distributed(f"localhost:{port}", n, rank, backend=backend)
+    try:
+        fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_on_ranks(fn, n, device, *args):
+    """fn(*args) on `n` ranks. Where this process already is one rank of a
+    group of n (joined before, or started by torchrun, whose environment
+    names the group), it runs here and its result is returned. Otherwise
+    n new processes on this host form a group over localhost (nccl on
+    CUDA devices, gloo on the CPU), each runs fn(*args), and None is
+    returned once all have finished; one that fails raises here."""
+    import torch.multiprocessing as mp
+
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        if not dist.is_initialized():
+            init_distributed(backend=backend_for(device))
+        if dist.get_world_size() != n:
+            raise ValueError(f"{n} ranks asked for, but the process group has "
+                             f"{dist.get_world_size()}")
+        return fn(*args)
+    mp.spawn(_rank_entry, args=(fn, n, free_port(), backend_for(device), args), nprocs=n,
+             join=True)
+    return None
+
+
+def mesh_ranks(mesh):
+    """The global ranks of the mesh, in batch order (the flattened mesh)."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def data_group(mesh):
+    """The process group that carries the batch: the 'data' dim of a 1-D
+    mesh, the whole group under a 2-D one (which spans every rank)."""
+    return mesh.get_group(0) if mesh.ndim == 1 else dist.group.WORLD
+
+
+def world_size(mesh):
+    return int(mesh.mesh.numel())
+
+
+def data_rank(mesh):
+    """This rank's position on the mesh's batch axis."""
+    return mesh_ranks(mesh).index(dist.get_rank())
+
+
+def all_sum(t, mesh):
+    """The sum of `t` over the mesh's batch axis (a new tensor, equal on
+    every rank)."""
+    buf = t.detach().clone()
+    dist.all_reduce(buf, group=data_group(mesh))
+    return buf
+
+
+def all_gather(t, mesh):
+    """[t of rank 0, t of rank 1, ...] in batch-axis order; every rank
+    passes a tensor of the same shape and dtype."""
+    src = t.detach().contiguous()
+    out = [torch.empty_like(src) for _ in range(world_size(mesh))]
+    dist.all_gather(out, src, group=data_group(mesh))
+    return out
+
+
+def barrier(mesh):
+    dist.barrier(group=data_group(mesh))
+
+
+def broadcast_module(module, mesh, src=0):
+    """Make every parameter and buffer of `module` equal to the one of the
+    rank at batch-axis position `src`."""
+    group, src_rank = data_group(mesh), mesh_ranks(mesh)[src]
+    with torch.no_grad():
+        for t in [*module.parameters(), *module.buffers()]:
+            dist.broadcast(t.data, src_rank, group=group)
+    return module
+
+
+def pad_to_multiple(x, multiple, axis=0):
+    """Pad the batch axis of tensor `x` so it divides `multiple`, repeating
+    the last row (edge); returns (padded, original length)."""
+    n = x.shape[axis]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x, n
+    last = x.narrow(axis, n - 1, 1)
+    reps = [rem if i == axis else 1 for i in range(x.ndim)]
+    return torch.cat([x, last.repeat(*reps)], dim=axis), n
+
+
+class Rows:
+    """One rank's rows of a global batch of `n`. `order` [n] lists the
+    global positions of every rank's rows, rank after rank, each rank's
+    in its local order; this rank holds `order[lo:hi]`."""
+
+    def __init__(self, n, order, bounds, rank, mesh):
+        self.n = int(n)
+        self.order = order
+        self.bounds = bounds
+        self.index = order[bounds[rank]:bounds[rank + 1]]
+        self.mesh = mesh
+        self._on = {}
+
+    @property
+    def n_local(self):
+        return int(self.index.numel())
+
+    @property
+    def scale(self):
+        """n_local / n: a mean over the local rows times this is the
+        rank's share of the global mean."""
+        return self.n_local / self.n
+
+    def _index_on(self, device, which="index"):
+        key = (which, str(device))
+        if key not in self._on:
+            self._on[key] = getattr(self, which).to(device)
+        return self._on[key]
+
+    def take(self, x):
+        """The local rows of a global batch (tensor or numpy array)."""
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.index_select(0, self._index_on(x.device))
+        return np.asarray(x)[self.index.numpy()]
+
+    def randn(self, shape, generator=None, device=None, dtype=torch.float32):
+        """The local rows of torch.randn([n, *shape[1:]]) drawn from
+        `generator`: the draw of the global batch, so that every rank's
+        generator advances as the one-process run's does."""
+        full = torch.randn([self.n, *shape[1:]], generator=generator, device=device, dtype=dtype)
+        return self.take(full)
+
+    def mean(self, x):
+        """The rank's share of the global batch mean of x [n_local, ...]
+        over its first axis (x.sum(0) / n)."""
+        return x.sum(dim=0) / self.n
+
+    def sum(self, t):
+        """All-reduce sum over the ranks of the mesh."""
+        return all_sum(t, self.mesh)
+
+    def gather(self, x):
+        """The global batch [n, ...] from every rank's local rows, in the
+        global order, on every rank."""
+        parts = torch.cat(all_gather(x, self.mesh))
+        out = torch.empty((self.n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        out[self._index_on(x.device, "order")] = parts
+        return out
+
+
+def shard_rows(n, mesh, group_size=1):
+    """This rank's Rows of a global batch of `n` over the mesh's batch
+    axis. With `group_size` g (a minibatch-stddev layer's, effective
+    min(g, n)), sample i = k * (n / g) + j belongs to group j; each rank
+    takes a block of whole groups j, and orders its rows k-major, so that
+    its local reshape(g, -1) forms exactly the global groups. With g = 1
+    the ranks hold contiguous blocks."""
+    world, rank = world_size(mesh), data_rank(mesh)
+    g = max(1, min(int(group_size), n))
+    if n % (g * world):
+        raise ValueError(
+            f"a batch of {n} does not split into {world} ranks of whole groups of {g} "
+            f"(minibatch stddev): pad it to a multiple of {g * world}")
+    m = n // g                   # number of groups
+    per = m // world             # groups per rank
+    k = torch.arange(g)
+    order = torch.cat([(k[:, None] * m + torch.arange(r * per, (r + 1) * per)[None, :])
+                       .reshape(-1) for r in range(world)])
+    bounds = [r * g * per for r in range(world + 1)]
+    return Rows(n, order, bounds, rank, mesh)
+
+
+def free_port():
+    """A free TCP port on localhost for a coordinator address."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]

@@ -14,6 +14,11 @@ one or an NVIDIA (StyleGAN2 / StyleGAN3) or TF-era network pickle.
         --split train --num_steps 1000 --batch_size 16 \
         --outdir interim/Pelvis/temp-projector \
         --dest_zip interim/Pelvis/Pelvis-inv.zip [--device cpu]
+
+With ``--n_devices N`` the batch is split over N ranks, one process per
+device: started by ``torchrun --nproc_per_node N`` (or inside a process
+group already formed), or else started here on this host. Each rank
+projects its rows; rank 0 writes the pickles and the zip.
 """
 
 import argparse
@@ -60,7 +65,8 @@ def parse_args(argv=None):
                    help="ops: 'auto' runs the hand-written kernels on CUDA, "
                         "'ref' the plain PyTorch versions")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="more than 1 needs the data-parallel slice, not ported yet")
+                   help="data-parallel ranks, one process per device (torchrun, or "
+                        "started here); must divide --batch_size")
     p.add_argument("--outdir", default="temp-projector")
     p.add_argument("--dest_zip", default=None,
                    help="also package outdir into an inversion zip "
@@ -72,12 +78,22 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Runs the inversion; returns per-batch records
-    [{'n': slices, 'seconds': wall, 'dists': [num_steps] floats}]."""
+    [{'n': slices, 'seconds': wall, 'dists': [num_steps] floats}] (None
+    where the ranks ran in processes started here)."""
     args = parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 belongs to the DDP slice, which is not ported yet")
+    if args.n_devices <= 1:
+        return run(args)
+    if args.batch_size % args.n_devices:
+        raise ValueError(f"--batch_size {args.batch_size} must be divisible by "
+                         f"--n_devices {args.n_devices}")
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
 
+    return pmesh.run_on_ranks(run, args.n_devices, args.device, args)
+
+
+def run(args):
+    """The inversion of parsed `args` on this process (one rank of
+    --n_devices where that is above 1)."""
     import torch
 
     from latentaugment_tpu_torch.augments import engine, manifold
@@ -87,6 +103,13 @@ def main(argv=None):
     from latentaugment_tpu_torch.utils import util_general
 
     device = engine.resolve_device(args.device)
+    mesh, writer = None, True
+    if args.n_devices > 1:
+        from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+        device = pmesh.rank_device(args.device)
+        mesh = pmesh.get_mesh(args.n_devices, devices=device)
+        writer = pmesh.data_rank(mesh) == 0
     modalities = util_general.parse_comma_separated_list(args.modalities)
 
     g_params, g_cfg, _, _ = checkpoint.load_stylegan(
@@ -139,9 +162,16 @@ def main(argv=None):
         target = torch.as_tensor(np.stack(imgs), dtype=torch.float32, device=device)
 
         t0 = time.time()
-        w_opt, dists = project(G, vgg_params, target, w_avg, w_std, gen)
+        if mesh is None:
+            w_opt, dists = project(G, vgg_params, target, w_avg, w_std, gen)
+        else:
+            rows = pmesh.shard_rows(args.batch_size, mesh)
+            w_opt, dists = project(G, vgg_params, rows.take(target), w_avg, w_std, gen, rows)
+            w_opt = rows.gather(w_opt)
         dists = dists.float().cpu().numpy()  # waits for the device
         seconds = time.time() - t0
+        if not writer:
+            fnames = []
         for fn, payload in zip(fnames, projector.broadcast_rows(w_opt[:n_valid],
                                                                 g_cfg.num_ws)):
             parts = fn.split("/")  # <split>/<patient>/<slice>.pickle
@@ -154,11 +184,13 @@ def main(argv=None):
         print(f"[project] {done}/{n_items} (final dist {dists[-1]:.4f}, "
               f"{seconds:.1f}s/batch)")
 
-    if args.dest_zip:
+    if args.dest_zip and writer:
         patients = sorted(d for d in os.listdir(args.outdir)
                           if os.path.isdir(os.path.join(args.outdir, d)))
         write_to_zip(args.outdir, args.dest_zip,
                      splits_map={p: args.split for p in patients})
+    if mesh is not None:
+        pmesh.barrier(mesh)  # rank 0's files are written before any rank returns
     print(f"[project] done: {done} slices in {time.time() - t_start:.1f}s")
     return records
 

@@ -17,6 +17,12 @@ gamma, kimg, snap, aug, p, target, augpipe, mirror, resume), plus
 `--device`. `--resume` takes a native checkpoint or an NVIDIA / TF-era
 network pickle with a discriminator; `--resume-state` a
 training state of this trainer (`training-state-*.pt`).
+
+`--n_devices N` trains data-parallel over N ranks, one process per
+device: started by `torchrun --nproc_per_node N` (or inside a process
+group already formed), or else started here on this host. Every rank
+reads the same batch stream and computes its rows; rank 0 writes the run
+directory.
 """
 
 import argparse
@@ -66,7 +72,8 @@ def build_parser():
                         '(raw G/D, EMA, Adam moments, ADA controller, generator, nimg); '
                         'the saved configs override the network shape flags')
     p.add_argument('--n_devices', type=int, default=0,
-                   help='data-parallel size (more than 1 needs the DDP slice, not ported)')
+                   help='data-parallel ranks, one process per device (torchrun, or started '
+                        'here); must divide --batch')
     p.add_argument('--synthetic', action='store_true',
                    help='train on random data (smoke runs, 32x32)')
     p.add_argument('--channel_base', type=int, default=32768)
@@ -156,18 +163,33 @@ def resolve_train_cfg(train, args, resume_state, argv=None):
 
 
 def main(argv=None):
-    """Trains; returns the final state (see models/stylegan2/train.py)."""
+    """Trains; returns the final state (see models/stylegan2/train.py),
+    None where the ranks ran in processes started here."""
     args = parse_args(argv)
     if args.cpu:
         args.device = 'cpu'
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            '--n_devices > 1 belongs to the DDP slice, which is not ported yet')
+    if args.n_devices <= 1:
+        return run(args, argv)
+    if args.batch % args.n_devices:
+        raise ValueError(f'--n_devices {args.n_devices} must divide --batch {args.batch}')
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
 
+    return pmesh.run_on_ranks(run, args.n_devices, args.device, args, argv)
+
+
+def run(args, argv):
+    """Training from parsed `args` on this process (one rank of
+    --n_devices where that is above 1)."""
     from latentaugment_tpu_torch.models.stylegan2 import checkpoint, networks, train
     from latentaugment_tpu_torch.utils.util_general import resolve_device
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.n_devices > 1:
+        from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+        device = pmesh.rank_device(args.device)
+        mesh = pmesh.get_mesh(args.n_devices, devices=device)
     if args.synthetic:
         # A small operating point that runs in seconds on the CPU.
         args.resolution = min(args.resolution, 32)
@@ -220,7 +242,7 @@ def main(argv=None):
 
     state = None
     if g_params is not None:
-        state = train.make_train_fns(g_cfg, d_cfg, cfg, device=device) \
+        state = train.make_train_fns(g_cfg, d_cfg, cfg, device=device, mesh=mesh) \
             .state_from_params(g_params, d_params)
 
     # Snapshot-time metrics: every snapshot is scored against the real
@@ -246,9 +268,11 @@ def main(argv=None):
                     for m in metric_names:
                         res = metric_main.calc_metric(
                             m, G=snap_state.G_ema, dataset_kwargs=dataset_kwargs,
-                            mode_dict=dict(mode_name=mode, mode_idx=mode_idx), device=device)
-                        metric_main.report_metric(res, mode=mode, run_dir=args.outdir,
-                                                  snapshot_pkl=path)
+                            mode_dict=dict(mode_name=mode, mode_idx=mode_idx), device=device,
+                            mesh=mesh)
+                        if mesh is None or pmesh.data_rank(mesh) == 0:
+                            metric_main.report_metric(res, mode=mode, run_dir=args.outdir,
+                                                      snapshot_pkl=path)
 
     gamma_eff = cfg.r1_gamma if cfg.r1_gamma is not None else \
         0.0002 * args.resolution ** 2 / cfg.batch_size
@@ -258,7 +282,7 @@ def main(argv=None):
     state = train.train_loop(g_cfg, d_cfg, data_iter, cfg, total_kimg=args.kimg,
                              run_dir=args.outdir, seed=args.seed, snapshot_kimg=args.snap,
                              state=state, on_snapshot=on_snapshot,
-                             resume_state=resume_state, device=device)
+                             resume_state=resume_state, device=device, mesh=mesh)
     print('[torch_train_sg2] done')
     return state
 

@@ -2,7 +2,8 @@
 every module of the port and its projector and trainer scripts, and
 running its policies, its projector and trainer command lines, an
 alias-free generator, a metric, the LatentAugment sweep driver, the
-one-command pipeline, an export and the pix2pix nets on the CPU loads no
+one-command pipeline, an export, the pix2pix nets and the dataset tool's
+recipe on the CPU loads no
 `jax` module, no `click` and nothing of the JAX package
 `latentaugment_tpu`. No source file of the port, nor `chip_smoke.py`,
 nor the port's scripts and examples, names such an import. And
@@ -33,7 +34,9 @@ for name in ("augments.criteria.lpips", "augments.criteria.nst", "augments.geome
              "models.stylegan2.dataset", "utils.util_url", "utils.util_io",
              "utils.util_reports", "analysis.hpo", "analysis.umap_analysis",
              "analysis.umap_plot", "analysis.pr_analysis", "analysis.create_gif",
-             "analysis.sg2_metrics_analysis", "analysis.sg2_metrics_opt"):
+             "analysis.sg2_metrics_analysis", "analysis.sg2_metrics_opt",
+             "data.dataset_tool", "data.create_csv_mayoclinic", "data.mayoclinic_dataset",
+             "data.vce_dataset", "parallel.mesh", "parallel.stats", "utils.util_misc"):
     assert "latentaugment_tpu_torch." + name in sys.modules, name
 from latentaugment_tpu_torch import augments, benchmark, data, models, options, utils
 from latentaugment_tpu_torch.models.stylegan3 import filters, networks as sg3
@@ -108,6 +111,17 @@ assert 0.0 <= p <= 1.0 and 0.0 <= r <= 1.0
 from latentaugment_tpu_torch.augments.criteria import LPIPS
 assert LPIPS("squeeze", device="cpu")(np.zeros((1, 3, 32, 32), np.float32),
                                       np.ones((1, 3, 32, 32), np.float32)).shape == (1,)
+# The dataset tool's recipe on .npy volumes, as its command line runs it.
+from latentaugment_tpu_torch.data import dataset_tool
+raw = os.path.join(root, "raw", "patient001")
+os.makedirs(raw)
+for mode in ("MR_nonrigid_CT", "MR_MR_T2"):
+    np.save(os.path.join(raw, mode + ".npy"), np.random.RandomState(0).rand(4, 12, 12) * 900)
+assert dataset_tool.main(["prepare-pelvis", "--data_dir", os.path.dirname(raw), "--interim_dir",
+                          os.path.join(root, "interim_tool"), "--dest_zip",
+                          os.path.join(root, "tool.zip"), "--resolution", "16",
+                          "--pop_range", "1"]) == 0
+assert os.path.getsize(os.path.join(root, "tool.zip")) > 0
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "click"
                 or m == "latentaugment_tpu" or m.startswith("latentaugment_tpu."))
@@ -154,7 +168,15 @@ def test_no_source_of_the_port_imports_jax_click_or_the_jax_package():
             "scripts/torch_check_train_run.py", "scripts/torch_sustained_train.py",
             "scripts/torch_export_model.py", "examples/torch_serve_generator.py",
             "examples/torch_train_pix2pix.py", "latentaugment_tpu_torch/models/pix2pix.py",
-            "latentaugment_tpu_torch/utils/util_pix2pix.py"} <= names
+            "latentaugment_tpu_torch/utils/util_pix2pix.py",
+            "latentaugment_tpu_torch/data/dataset_tool.py",
+            "latentaugment_tpu_torch/data/create_csv_mayoclinic.py",
+            "latentaugment_tpu_torch/data/mayoclinic_dataset.py",
+            "latentaugment_tpu_torch/data/vce_dataset.py",
+            "latentaugment_tpu_torch/data/table.py",
+            "latentaugment_tpu_torch/parallel/mesh.py",
+            "latentaugment_tpu_torch/parallel/stats.py",
+            "latentaugment_tpu_torch/utils/util_misc.py"} <= names
     banned = ("jax", "jaxlib", "click", "latentaugment_tpu")
     for path in files:
         with open(path) as f:

@@ -242,8 +242,8 @@ def test_policy_reads_the_inversion_zip(inverted):
 def test_cli_refuses_what_is_not_ported(inverted, tmp_path):
     base = ["--checkpoint", inverted["ckpt"], "--data_zip", inverted["img_zip"],
             "--resolution", str(RES), "--outdir", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="DDP slice"):
-        project_main(base + ["--n_devices", "4", "--device", "cpu"])
+    with pytest.raises(ValueError, match="divisible"):
+        project_main(base + ["--n_devices", "3", "--batch_size", "4", "--device", "cpu"])
     with pytest.raises(ValueError, match="asked for"):
         project_main(base[:4] + ["--resolution", "64", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -503,8 +503,9 @@ def test_cli_synthetic_snapshot_reads_in_the_policy_and_jax(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="DDP slice"):
-        torch_train_sg2.main(["--synthetic", "--device", "cpu", "--n_devices", "2"])
+    with pytest.raises(ValueError, match="must divide"):
+        torch_train_sg2.main(["--synthetic", "--device", "cpu", "--n_devices", "3",
+                              "--batch", "4"])
     # An NVIDIA wire-format pickle resumes (one step away from its weights);
     # one without D has nothing to resume the discriminator from.
     import reference_oracles as oracle

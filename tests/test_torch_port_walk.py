@@ -390,7 +390,7 @@ def test_engine_synthetize_broadcasting_and_snapshot_stats(policies):
     eng.snapshot_stats(title="recorded")
     with open(os.path.join(eng.save_dir, "recorded.jsonl")) as f:
         assert '"epoch_2"' in f.read()
-    with pytest.raises(NotImplementedError, match="DDP slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         engine_t.define_latentaugment("latent_aug", "train", None, None, None, mesh=object())
 
 
@@ -512,8 +512,11 @@ def test_parse_overrides_and_name_match_jax(case, tmp_path):
 def test_jax_compatibility_flags_parse(tmp_path):
     """The JAX command line's --gpu_ids, --verbose, --suffix and
     --gpu_ids_aug parse as there (gpu_ids: the same list of ints, which
-    selects nothing); --n_mesh_devices / --n_model_devices parse, and above
-    1 the policy raises, naming the DDP slice."""
+    selects nothing); --n_mesh_devices / --n_model_devices parse. Above 1,
+    --n_model_devices raises, naming tensor parallelism (not ported), and
+    --n_mesh_devices without a process group of that size raises instead
+    of walking on one process (tests/test_torch_port_parallel.py walks it
+    over two ranks)."""
     argv = _BASE + _LATENT + ["--checkpoints_dir", str(tmp_path), "--gpu_ids", "0,1",
                               "--verbose", "--suffix", "_run", "--gpu_ids_aug", "1",
                               "--n_mesh_devices", "1", "--n_model_devices", "0"]
@@ -522,10 +525,11 @@ def test_jax_compatibility_flags_parse(tmp_path):
     for k in ("gpu_ids", "verbose", "suffix", "gpu_ids_aug", "n_mesh_devices", "n_model_devices"):
         assert getattr(opt_t, k) == getattr(opt_j, k), k
     assert opt_t.gpu_ids == [0, 1] and opt_t.verbose is True
-    for flag in ("--n_mesh_devices", "--n_model_devices"):
+    for flag, err, match in (("--n_mesh_devices", RuntimeError, "torchrun"),
+                             ("--n_model_devices", NotImplementedError, "tensor parallelism")):
         opt = AugOptions_t().parse(argv=argv + [flag, "2", "--device", "cpu"],
                                    install_logger=False)
-        with pytest.raises(NotImplementedError, match="DDP slice"):
+        with pytest.raises(err, match=match):
             create_augment_t(opt)
 
 
