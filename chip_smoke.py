@@ -95,19 +95,24 @@ line.
      VGG16 with LPIPS heads through `vgg.convert_torchscript`: the taps on
      the card against the script module's (CONVERT_TOL).
 
- 11. StyleGAN3-R (radial 2-D down filters, G twice D's widths): K2's
-     generic variant with its tap count at run time at the R plan's
-     largest layer (L10: the radial 12x12 filter at down 2 in float32 and
-     bfloat16, the 24-tap up filter at up 4), forward and backward against
-     the plain version, with bounds and the one PyTorch call that computes
-     the same (the depthwise F.conv2d for the 2-D filter, the depthwise
-     F.conv_transpose2d at stride 4 with the 24x24 outer product, cropped,
-     for the 1-D one); the R generator at 256x256 in float32, kernels against the
-     plain versions (image and gradient at ws); the policy walk over an
-     SG3-R checkpoint for 3 batches at the largest of SG3R_BATCHES that
-     fits without remat, K2 `generic` and the decomposed filtered_lrelu
-     (K1 and K2) launched, K3 on the critically sampled layers; then the
-     K2 cases at the batch the walk ran.
+ 11. StyleGAN3-R (radial 2-D down filters, G twice D's widths): the R
+     generator at 256x256 in float32, kernels against the plain versions
+     (image and gradient at ws); the policy walk over an SG3-R checkpoint
+     for 3 batches at the largest of SG3R_BATCHES that fits without
+     remat, the decomposed filtered_lrelu (K1 and K2) launched, K2 `sepn`
+     (the 1-D up filters and their backwards) and `generic` (the radial
+     down filter) each 12 x 21 times a batch, K3 on the critically
+     sampled layers; one engine walk at that batch under torch.profiler,
+     its device time by kind, K2 by variant; then K2 at the R plan's
+     largest layers at the walk's batch, forward and backward against the
+     plain version in float32 and bfloat16: `generic` on L10's radial
+     12x12 filter at down 2, `sepn` on L10's 24-tap filter at up 4 and
+     L11's 12-tap filter at up 2 (float32 values only: three 10 GB
+     tensors and the plain graph leave no room for timing), with bounds,
+     the one PyTorch call that computes the same (the depthwise F.conv2d
+     for the 2-D filter, the depthwise F.conv_transpose2d at stride s with
+     the outer product, cropped, for the 1-D ones) and, for the 1-D ones,
+     `generic` timed on the same inputs (the kernel they ran on before).
  12. The sweep drivers (scripts/torch_backbone_{latentaug,sg2aug,geoaug}.py)
      on phase 3's workspace, 3 batches after the sanity check's: the
      LatentAugment sweep's dumps complete and its launches per batch equal
@@ -173,7 +178,7 @@ line.
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
 No launch of phases 5, 6, 8, 9, 12 and 13 may go through a kernel's
-`generic` variant; phase 11 must launch K2's. The last two lines of stdout are the kernels' JSON record and
+`generic` variant; phase 11 must launch K2's `generic` and `sepn`. The last two lines of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -648,69 +653,147 @@ def phase_small_reference(torch, benchmark, arch="stylegan2"):
     return {"trace_max_abs_diff": err, "w_max_abs_diff": (ws_g - ws_c).abs().max().item()}
 
 
-def phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev):
-    """K2 `generic` with its tap count at run time at the R plan's largest
-    layer: the radial 12x12 down filter (float32, bfloat16) and the 1-D up
-    filter, forward and backward against the plain version, with bounds
-    and the one PyTorch call that computes the same: for the 2-D filter the
-    depthwise F.conv2d, for the 1-D up filter the depthwise
-    F.conv_transpose2d with its outer product, cropped."""
+def k2_generic(torch, up, x, f, rate_up, rate_down, padding, flip, gain):
+    """K2's `generic` kernel (run-time taps) launched directly on one case,
+    as the port routed StyleGAN3-R's 1-D filters before `sepn`: the
+    "before" column. Not a path of the port, and not counted."""
+    n, c, out_h, out_w = up._output_shape(x, f, (rate_up,) * 2, (rate_down,) * 2, padding)
+    y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
+    taps = f.to(torch.float32).contiguous()
+    fw, fh = up._get_filter_size(taps)
+    err = up._library().upfirdn2d_launch(
+        x.data_ptr(), y.data_ptr(), taps.data_ptr(), up._DTYPE_CODE[x.dtype], n * c,
+        x.shape[2], x.shape[3], out_h, out_w, rate_up, rate_up, rate_down, rate_down,
+        padding[0], padding[2], fw, fh, int(taps.ndim == 1), int(flip), float(gain),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2 generic launch failed: CUDA error {err}")
+    return y
+
+
+def check_only(torch, name, fn, x, dy_seed, dtype_name, records):
+    """Kernel vs plain on values and dx without timing, holding one
+    full-size tensor at a time beside the plain version's graph (the 1-D
+    up filters in float32 at the walk's batch: 10 GB an output)."""
+    rec = {"case": name, "dtype": dtype_name, "shape": list(x.shape), "timed": False}
+    with torch.no_grad():
+        y_k = fn(x, "auto")
+        check_close(rec, "fwd", y_k, fn(x, "ref"), TOL[dtype_name])
+    g = torch.Generator(device=x.device).manual_seed(dy_seed)
+    dy = torch.randn(y_k.shape, generator=g, device=x.device).to(y_k.dtype)
+    del y_k
+    dxs = {}
+    for impl in ("auto", "ref"):
+        xg = x.detach().requires_grad_(True)
+        dxs[impl], = torch.autograd.grad(fn(xg, impl), xg, dy)
+        del xg
+        torch.cuda.empty_cache()
+    check_close(rec, "bwd", dxs["auto"], dxs["ref"], TOL[dtype_name])
+    records.append(rec)
+    log(f"  {name:34s} {dtype_name:8s} fwd err {rec['fwd_rel_err']:.2e} bwd err "
+        f"{rec['bwd_rel_err']:.2e} (values only)")
+    return rec
+
+
+def phase_sg3r_kernels(torch, up, layers, batch, dev):
+    """K2 at the R plan's largest decomposed layers at the walk's batch,
+    forward and backward against the plain version (float32 and bfloat16),
+    with bounds and the one PyTorch call that computes the same: the radial
+    12x12 down filter at L10 through `generic` (the depthwise F.conv2d),
+    the 1-D up filters through `sepn`: 24 taps at up 4 (L10) and 12 at up
+    2 (L11), their backwards at down 4 and 2 (the depthwise
+    F.conv_transpose2d with the outer product, cropped). The 1-D cases
+    also time `generic` on the same inputs, the kernel the port ran for
+    them before `sepn`. `layers` maps a layer name to (layer, fu, fd)."""
     bf16, f32 = torch.bfloat16, torch.float32
     names = {f32: "float32", bf16: "bfloat16"}
     g = torch.Generator(device=dev).manual_seed(11)
-    lo, hi = layer.padding
-    pad = (lo, hi, lo, hi)
-    c, n_in = layer.out_channels, layer.in_size
-    mid = (n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1))
-    cases = [
-        (f"{layer.name.split('_')[0]} radial fd {fd.shape[0]}x{fd.shape[1]} down "
-         f"{layer.down_factor}", [batch, c, mid, mid], fd, dict(down=layer.down_factor)),
-        (f"{layer.name.split('_')[0]} fu {fu.shape[0]} taps up {layer.up_factor}",
-         [batch, c, n_in, n_in], fu, dict(up=layer.up_factor, padding=pad,
-                                          gain=layer.up_factor ** 2)),
-    ]
+    cases = []
+    for lname, which in (("L10", "fd"), ("L10", "fu"), ("L11", "fu")):
+        layer, fu, fd = layers[lname]
+        lo, hi = layer.padding
+        pad = (lo, hi, lo, hi)
+        c, n_in = layer.out_channels, layer.in_size
+        if which == "fd":
+            mid = (n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1))
+            cases.append((f"{lname} radial fd {fd.shape[0]}x{fd.shape[1]} down "
+                          f"{layer.down_factor}", [batch, c, mid, mid], fd,
+                          dict(down=layer.down_factor), "generic"))
+        else:
+            cases.append((f"{lname} fu {fu.shape[0]} taps up {layer.up_factor}",
+                          [batch, c, n_in, n_in], fu,
+                          dict(up=layer.up_factor, padding=pad, gain=layer.up_factor ** 2),
+                          "sepn"))
     recs = []
-    for name, shape, f, kw in cases:
-        for dtype in ((f32, bf16) if f.ndim == 2 else (bf16,)):
+    for name, shape, f, kw, variant in cases:
+        for dtype in (f32, bf16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
-            if f.ndim == 2:
-                weight = f.flip([0, 1]).to(dtype)[None, None].repeat(shape[1], 1, 1, 1)
-
-                def library(x, weight=weight, stride=kw["down"]):
-                    return torch.nn.functional.conv2d(x, weight, stride=stride,
-                                                      groups=weight.shape[0])
-            else:
-                # Up-sampling by s with a T-tap filter: the depthwise
-                # transposed conv at stride s with the T x T outer product
-                # (times the gain), cropped to the padding (lo, hi):
-                # upfirdn2d's output m is the full convolution's m + T-1-lo.
-                taps, s_up = f.shape[0], kw["up"]
-                weight = (torch.outer(f, f) * kw["gain"]).to(dtype)[None, None] \
-                    .repeat(shape[1], 1, 1, 1)
-                crop = [lo - (taps - 1), hi + s_up - taps] * 2
-
-                def library(x, weight=weight, stride=s_up, crop=crop):
-                    return torch.nn.functional.pad(torch.nn.functional.conv_transpose2d(
-                        x, weight, stride=stride, groups=weight.shape[0]), crop)
             wkw = dict(up=kw.get("up", 1), down=kw.get("down", 1), padding=kw.get("padding", 0))
-            wf = up.work(shape, tuple(f.shape), itemsize=x.element_size(), **wkw)
-            # The backward is K2 on dy with up and down swapped.
-            bpad = up.transposed_padding(shape, wf["out_shape"], up._get_filter_size(f),
-                                         (wkw["up"],) * 2, (wkw["down"],) * 2,
-                                         up._parse_padding(wkw["padding"]))
-            wb = up.work(wf["out_shape"], tuple(f.shape), up=wkw["down"], down=wkw["up"],
-                         padding=bpad, itemsize=x.element_size())
             before = dict(up.variant_launches)
-            # The backward too within TOL: one FIR, rounded once either way.
-            rec = compare(name, lambda x, impl: up.upfirdn2d(x, f, impl=impl, **kw), x,
-                          300 + len(recs), names[dtype], recs,
-                          ((wf["bytes"], wf["macs"]), (wb["bytes"], wb["macs"])), library,
-                          tol_bwd=TOL)
+
+            def fn(x, impl, f=f, kw=kw):
+                return up.upfirdn2d(x, f, impl=impl, **kw)
+
+            if f.ndim == 1 and dtype == f32:
+                # The plain version's graph and three 10 GB tensors do not
+                # fit beside a timed run: values only.
+                rec = check_only(torch, name, fn, x, 300 + len(recs), names[dtype], recs)
+            else:
+                if f.ndim == 2:
+                    weight = f.flip([0, 1]).to(dtype)[None, None].repeat(shape[1], 1, 1, 1)
+
+                    def library(x, weight=weight, stride=kw["down"]):
+                        return torch.nn.functional.conv2d(x, weight, stride=stride,
+                                                          groups=weight.shape[0])
+                elif dtype == bf16:
+                    # Up-sampling by s with a T-tap filter: the depthwise
+                    # transposed conv at stride s with the T x T outer product
+                    # (times the gain), cropped to the padding (lo, hi):
+                    # upfirdn2d's output m is the full convolution's m + T-1-lo.
+                    taps, s_up = f.shape[0], kw["up"]
+                    lo, hi = kw["padding"][0], kw["padding"][1]
+                    weight = (torch.outer(f, f) * kw["gain"]).to(dtype)[None, None] \
+                        .repeat(shape[1], 1, 1, 1)
+                    crop = [lo - (taps - 1), hi + s_up - taps] * 2
+
+                    def library(x, weight=weight, stride=s_up, crop=crop):
+                        return torch.nn.functional.pad(torch.nn.functional.conv_transpose2d(
+                            x, weight, stride=stride, groups=weight.shape[0]), crop)
+                wf = up.work(shape, tuple(f.shape), itemsize=x.element_size(), **wkw)
+                # The backward is K2 on dy with up and down swapped.
+                bpad = up.transposed_padding(shape, wf["out_shape"], up._get_filter_size(f),
+                                             (wkw["up"],) * 2, (wkw["down"],) * 2,
+                                             up._parse_padding(wkw["padding"]))
+                wb = up.work(wf["out_shape"], tuple(f.shape), up=wkw["down"], down=wkw["up"],
+                             padding=bpad, itemsize=x.element_size())
+                # The backward too within TOL: one FIR, rounded once either way.
+                rec = compare(name, fn, x, 300 + len(recs), names[dtype], recs,
+                              ((wf["bytes"], wf["macs"]), (wb["bytes"], wb["macs"])), library,
+                              tol_bwd=TOL)
+                if f.ndim == 1:
+                    # `generic` on the same inputs: the before column.
+                    padding = up._parse_padding(wkw["padding"])
+                    gen_args = (f, wkw["up"], wkw["down"], padding, False, float(kw["gain"]))
+                    with torch.no_grad():
+                        y_s = fn(x, "auto")
+                        y_g = k2_generic(torch, up, x, *gen_args)
+                        check_close(rec, "generic", y_g, y_s, TOL[names[dtype]])
+                        dy = torch.randn_like(y_s)
+                        del y_s, y_g
+                        gb_args = (f, wkw["down"], wkw["up"], bpad, True, float(kw["gain"]))
+                        rec["generic_fwd_ms"] = median_ms(
+                            lambda: k2_generic(torch, up, x, *gen_args))
+                        rec["generic_bwd_ms"] = median_ms(
+                            lambda: k2_generic(torch, up, dy, *gb_args))
+                    del dy
+                    log(f"    before (K2 generic, same inputs): fwd {rec['generic_fwd_ms']:.3f} "
+                        f"ms, bwd {rec['generic_bwd_ms']:.3f} ms")
             used = {k for k in before if up.variant_launches[k] != before[k]}
-            if used != {"generic"}:
-                raise AssertionError(f"{name}: launched variants {used}, expected generic")
-            rec["variant"] = rec["bwd_variant"] = "generic"
-            rec["plan"] = up._plan(tuple(f.shape), (wkw["up"],) * 2, (wkw["down"],) * 2, (1, 1))
+            if used != {variant}:
+                raise AssertionError(f"{name}: launched variants {used}, expected {variant}")
+            rec["variant"] = rec["bwd_variant"] = variant
+            rec["plan"] = up._plan(tuple(f.shape), (wkw["up"],) * 2, (wkw["down"],) * 2,
+                                   tuple(shape[2:]))
             rec["kw"] = {k: list(v) if isinstance(v, tuple) else v for k, v in kw.items()}
             del x
             torch.cuda.empty_cache()
@@ -725,8 +808,9 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     g_cfg, _ = benchmark.make_gd_configs(RES, 2, num_fp16_res=0, arch="stylegan3",
                                          **WIDTHS, **benchmark.SG3R)
     radial = [layer for layer in g_cfg.layers if layer.down_radial]
-    layer = max(radial, key=lambda l: l.out_channels * (l.in_size * l.up_factor) ** 2)
-    fu, fd = (torch.as_tensor(f, device=dev) for f in net3._layer_filters(layer))
+    layers = {layer.name.split("_")[0]: (layer, *(torch.as_tensor(f, device=dev)
+                                                  for f in net3._layer_filters(layer)))
+              for layer in radial}
 
     # The generator in float32, kernels against the plain versions: the
     # image and its gradient with respect to ws.
@@ -756,8 +840,9 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
               "filtered_lrelu_bwd"):
         if launches_k[k] <= 0:
             raise AssertionError(f"SG3-R G: kernel {k} was not launched: {launches_k}")
-    if variants_k["upfirdn2d"]["generic"] <= 0 or dec_k["filtered_lrelu_decomposed"] <= 0:
-        raise AssertionError(f"SG3-R G: no decomposed layer ran through K2 generic: "
+    if (variants_k["upfirdn2d"]["generic"] <= 0 or variants_k["upfirdn2d"]["sepn"] <= 0
+            or dec_k["filtered_lrelu_decomposed"] <= 0):
+        raise AssertionError(f"SG3-R G: no decomposed layer ran through K2 generic and sepn: "
                              f"{variants_k}, {dec_k}")
     g_rec = dict(batch=SG3R_G_BATCH, launches=launches_k, variant_launches=variants_k,
                  decomposed_calls=dec_k,
@@ -793,8 +878,14 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     launches, variants = read_counters(counters, "SG3-R walk",
                                        [k for k in launches if k != "bias_act_bwd2"],
                                        generic_ok=("upfirdn2d",))
-    if variants["upfirdn2d"]["generic"] <= 0 or dec["filtered_lrelu_decomposed"] <= 0:
-        raise AssertionError(f"SG3-R walk: no decomposed layer ran: {variants}, {dec}")
+    # Per batch, each of the decomposed layers' two FIRs runs in 11
+    # syntheses (10 Adam steps and the final one) and 10 backwards: the
+    # 1-D up filter through `sepn`, the radial down filter through `generic`.
+    want = len(radial) * (2 * 10 + 1) * N_BATCHES
+    k2 = variants["upfirdn2d"]
+    if k2["sepn"] != want or k2["generic"] != want or dec["filtered_lrelu_decomposed"] <= 0:
+        raise AssertionError(f"SG3-R walk: K2 launches by variant {k2} over {N_BATCHES} "
+                             f"batches, expected {want} sepn and {want} generic; {dec}")
     sps = samples_per_s(batches, batch)
     walk_rec = dict(batch=batch, launches=launches, variant_launches=variants,
                     decomposed_calls=dec, samples_per_s=sps, peak_mem_bytes=peak,
@@ -808,9 +899,22 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # K2 at the largest radial layer, at the batch the walk gives it.
-    kernel_recs = phase_sg3r_kernels(torch, up, layer, fu, fd, batch, dev)
-    return dict(kernels=kernel_recs, generator=g_rec, walk=walk_rec, layer=layer.name)
+    # One engine walk at the same batch under torch.profiler: device time
+    # by kind of kernel, K2 by variant (after the counters were read).
+    from scripts.torch_kernel_times import sg3r_walk
+
+    walk_rec["device_split"] = sg3r_walk(torch, dev, batch=batch, reps=1)
+    split = walk_rec["device_split"]
+    log(f"  engine walk at batch {batch}: {split['walk_ms']:.1f} ms, idle "
+        f"{split['idle_share']:.3f}; device ms by kind "
+        f"{ {k: round(v, 1) for k, v in split['device_ms_by_kind'].items()} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K2 at the largest decomposed layers, at the batch the walk gives them.
+    kernel_recs = phase_sg3r_kernels(torch, up, layers, batch, dev)
+    return dict(kernels=kernel_recs, generator=g_rec, walk=walk_rec,
+                layers=[layers[k][0].name for k in ("L10", "L11")])
 
 
 def run_driver(torch, counters, main, argv, n_imgs, **over):
@@ -3036,8 +3140,10 @@ def main():
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
     fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
-    r_recs = sg3r_rec["kernels"]
+    r_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "generic"]
     r_main = next(r for r in r_recs if "radial" in r["case"] and r["dtype"] == "bfloat16")
+    n_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "sepn"]
+    n_main = next(r for r in n_recs if "up 4" in r["case"] and r["dtype"] == "bfloat16")
     def entry(name, route, source, replaces, launches, recs, main, direction, variant):
         """One kernel of the `kernels` line: times, bound and library time
         are the main-path case's (`main`), the error the worst of `recs`."""
@@ -3078,6 +3184,16 @@ def main():
              launches_by_path={"walk_stylegan3r": sg3r_rec["walk"]["variant_launches"]
                                ["upfirdn2d"]["generic"]},
              decomposed_calls=sg3r_rec["walk"]["decomposed_calls"]),
+        # K2's staged polyphase variant, StyleGAN3-R's 1-D filters: launches
+        # are the SG3-R walk's sepn ones; `generic` on the same case before.
+        dict(entry("upfirdn2d_sepn", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
+                   "latentaugment_tpu/ops/upfirdn2d.py:564",
+                   sg3r_rec["walk"]["variant_launches"]["upfirdn2d"]["sepn"], n_recs, n_main,
+                   "fwd+bwd", "sepn"),
+             case="sepn 1-D: " + n_main["case"],
+             launches_by_path={"walk_stylegan3r": sg3r_rec["walk"]["variant_launches"]
+                               ["upfirdn2d"]["sepn"]},
+             generic_ms=n_main["generic_fwd_ms"]),
     ]
 
     out_dir = os.path.join(REPO, "chiprun_out")

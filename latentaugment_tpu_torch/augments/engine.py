@@ -23,9 +23,10 @@ Data parallelism (`mesh=`, a DeviceMesh of parallel/mesh.py, one process
 per device): every rank gets the global batch, walks its own rows and
 returns the global result. Every loss term is a batch mean, so each rank
 scales its local mean by n_local / n: each w's gradient, and so its Adam
-path, is the one-process one, with no collective inside the K steps. The
-discriminator's minibatch-stddev groups stay whole on one rank
-(`shard_rows` with D's group size), the final synthesis draws its noise
+path, is the one-process one. The discriminator's minibatch-stddev
+groups stay whole on one rank where they fit (`shard_rows` with D's group
+size: no collective inside the K steps); where they do not, D's epilogue
+gathers its input across the ranks once per step. The final synthesis draws its noise
 for the global batch and takes its rows, and the loss traces are summed
 across ranks once per walk. Each rank runs its own kernels.
 """
@@ -88,8 +89,8 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
         W_mean, W_msq = bundle["W_summary"]
         return w_latent * losses.l2_mean_loss(ws, W_mean, W_msq)
 
-    def term_disc(bundle, x, c=None):
-        return w_disc * losses.disc_softplus_loss(bundle["D"](x, c, remat=remat))
+    def term_disc(bundle, x, c=None, rows=None):
+        return w_disc * losses.disc_softplus_loss(bundle["D"](x, c, remat=remat, rows=rows))
 
     def term_pix(bundle, x):
         x_cc = manifold.center_crop(x, res)
@@ -120,23 +121,27 @@ def make_walk_fns(g_cfg, *, n_modes, w_pix, w_lpips, w_latent,
                                                       normalize=False)
         return acc / n_modes
 
-    # Each term as (bundle, ws, x, crop_pos, c) -> loss.
+    # Each term as (bundle, ws, x, crop_pos, c, rows) -> loss; only D reads
+    # `rows` (its minibatch-stddev groups under data parallelism).
     terms = {}
     if w_latent > 0.0:
-        terms["loss_latent"] = lambda bundle, ws, x, crop_pos, c: term_latent(bundle, ws)
+        terms["loss_latent"] = lambda bundle, ws, x, crop_pos, c, rows=None: \
+            term_latent(bundle, ws)
     if w_disc > 0.0:
-        terms["loss_disc"] = lambda bundle, ws, x, crop_pos, c: term_disc(bundle, x, c)
+        terms["loss_disc"] = lambda bundle, ws, x, crop_pos, c, rows=None: \
+            term_disc(bundle, x, c, rows)
     if w_pix > 0.0:
-        terms["loss_pix"] = lambda bundle, ws, x, crop_pos, c: term_pix(bundle, x)
+        terms["loss_pix"] = lambda bundle, ws, x, crop_pos, c, rows=None: term_pix(bundle, x)
     if w_lpips > 0.0:
-        terms["loss_lpips"] = lambda bundle, ws, x, crop_pos, c: term_lpips(bundle, x, crop_pos)
+        terms["loss_lpips"] = lambda bundle, ws, x, crop_pos, c, rows=None: \
+            term_lpips(bundle, x, crop_pos)
 
     def loss_fn(bundle, w, crop_pos, c=None, rows=None):
         """(total, aux): total = -latent - pix - lpips + disc. Under data
         parallelism (`rows`: this rank's rows of the global batch) each
         term is the rank's share of the global batch mean."""
         ws, x = synth(bundle, w)
-        aux = {name: fn(bundle, ws, x, crop_pos, c) for name, fn in terms.items()}
+        aux = {name: fn(bundle, ws, x, crop_pos, c, rows) for name, fn in terms.items()}
         if rows is not None:
             aux = {name: val * rows.scale for name, val in aux.items()}
         total = (-aux.get("loss_latent", 0.0) - aux.get("loss_pix", 0.0)

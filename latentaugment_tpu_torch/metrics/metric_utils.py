@@ -51,9 +51,8 @@ def detect(detector, x, mesh=None):
     (the batch padded to a multiple of the ranks), gathered."""
     if mesh is None:
         return detector(x)
-    padded, n = pmesh.pad_to_multiple(x, pmesh.world_size(mesh))
-    rows = pmesh.shard_rows(padded.shape[0], mesh)
-    return rows.gather(detector(rows.take(padded)))[:n]
+    rows = pmesh.shard_rows(x.shape[0], mesh, pad=True)
+    return rows.gather(detector(rows.take(x)))
 
 
 class MetricOptions:
@@ -421,7 +420,10 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
     """Features of live generator samples: opts.G(z) with random noise at
     G_kwargs['truncation_psi'], z and noise from one generator seeded with
     G_kwargs['seed'] on G's device. Under a mesh each rank renders and
-    detects its rows of every batch (batch_gen a multiple of the ranks)."""
+    detects its rows of every batch: the batch is padded to a multiple
+    of the ranks (its last row repeated) and the padded rows dropped
+    after the gather, so any rank count runs and the draws are one
+    process's."""
     G = opts.G
     c_dim = int(G.cfg.get("c_dim", 0) or 0)
     label_bank = _dataset_label_bank(opts, c_dim) if c_dim > 0 else None
@@ -454,7 +456,7 @@ def compute_feature_stats_for_generator(opts, detector_url, mode_dict=None, rel_
                 img = G(z, c, truncation_psi=psi, noise_mode="random", generator=gen)
                 feats = detector(_to_detector_batch(img.float(), mode_idx))
             else:
-                rows = pmesh.shard_rows(batch_gen, opts.mesh)
+                rows = pmesh.shard_rows(batch_gen, opts.mesh, pad=True)
                 img = G(rows.take(z), rows.take(c), truncation_psi=psi, noise_mode="random",
                         generator=gen, rows=rows)
                 feats = rows.gather(detector(_to_detector_batch(img.float(), mode_idx)))

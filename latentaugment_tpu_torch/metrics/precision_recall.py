@@ -37,8 +37,7 @@ def compute_distances(row_features, col_features, col_batch_size=10000,
     n = rows.shape[0]
     shard = None
     if mesh is not None:
-        rows, _ = pmesh.pad_to_multiple(rows, pmesh.world_size(mesh))
-        shard = pmesh.shard_rows(rows.shape[0], mesh)
+        shard = pmesh.shard_rows(n, mesh, pad=True)
         rows = shard.take(rows)
     out = []
     for lo in range(0, col_features.shape[0], col_batch_size):
@@ -46,7 +45,7 @@ def compute_distances(row_features, col_features, col_batch_size=10000,
                                device=device)
         tile = _dist_tile(rows, cols)
         if shard is not None:
-            tile = shard.gather(tile)[:n]
+            tile = shard.gather(tile)
         out.append(tile.cpu().numpy())
     return np.concatenate(out, axis=1)
 

@@ -380,8 +380,13 @@ class DiscriminatorBlock(nn.Module):
         return y + x
 
 
-def minibatch_stddev(x, group_size, num_channels):
-    """Append per-group feature-stddev channels (D epilogue)."""
+def minibatch_stddev(x, group_size, num_channels, rows=None):
+    """Append per-group feature-stddev channels (D epilogue). Under data
+    parallelism `rows` (parallel.mesh.Rows) says which rows of the global
+    batch x holds; where they are not whole groups, the global batch is
+    gathered (differentiably), grouped, and this rank's rows kept."""
+    if rows is not None and not rows.holds_groups(group_size):
+        return rows.take(minibatch_stddev(rows.gather_grad(x), group_size, num_channels))
     n, c, h, w = x.shape
     g = min(group_size, n) if group_size is not None else n
     if n % g != 0:
@@ -407,8 +412,8 @@ class DiscriminatorEpilogue(nn.Module):
         self.fc = FullyConnectedLayer(gen, ch4 * 4 * 4, ch4, activation='lrelu')
         self.out = FullyConnectedLayer(gen, ch4, cfg.cmap_dim or 1)
 
-    def forward(self, x):
-        x = minibatch_stddev(x, self.cfg.mbstd_group_size, self.cfg.mbstd_num_channels)
+    def forward(self, x, rows=None):
+        x = minibatch_stddev(x, self.cfg.mbstd_group_size, self.cfg.mbstd_num_channels, rows)
         x = self.conv(x)
         x = self.fc(x.reshape(x.shape[0], -1))
         return self.out(x)
@@ -431,8 +436,9 @@ class Discriminator(nn.Module):
         self.register_buffer('resample_filter', setup_filter([1, 3, 3, 1], separable=True))
         set_impl(self, impl)
 
-    def forward(self, img, c=None, remat=False):
-        """remat as in SynthesisNetwork.forward."""
+    def forward(self, img, c=None, remat=False, rows=None):
+        """remat as in SynthesisNetwork.forward; `rows` (data parallelism)
+        as in minibatch_stddev."""
         cfg = self.cfg
         f = self.resample_filter
         fp16 = _fp16_resolutions(cfg)
@@ -448,7 +454,7 @@ class Discriminator(nn.Module):
                 x = checkpoint(block, x, img, f, use_reentrant=False)
             else:
                 x = block(x, img, f)
-        x = self.b4(x.float())
+        x = self.b4(x.float(), rows)
         if cfg.c_dim > 0:
             cmap = self.mapping(None, c, broadcast=False)
             x = (x * cmap).sum(dim=1, keepdim=True) * float(1.0 / np.sqrt(cfg.cmap_dim))

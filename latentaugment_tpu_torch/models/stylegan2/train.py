@@ -32,8 +32,9 @@ their logs (device scalars), as `state, logs = fns.g_main(state, ...)`.
 
 Data parallelism (`mesh=`, parallel/mesh.py, one process per device):
 every rank holds the same state and receives the same global batch and
-z; each phase computes its rows (`shard_rows`, minibatch-stddev groups
-whole on one rank), draws every random number for the global batch and
+z; each phase computes its rows (`shard_rows`: minibatch-stddev groups
+whole on one rank where they fit, else D's epilogue gathers across the
+ranks), draws every random number for the global batch and
 takes its rows, scales its batch means by n_local / n, and all-reduces
 the gradients by hand over one flattened buffer after each backward (as
 NVIDIA's training loop does; DistributedDataParallel's hooks do not
@@ -226,7 +227,7 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda', mesh=None):
         """Non-saturating logistic G loss: E[softplus(-D(aug(G(z))))]."""
         ws, w_mean = _map_mix(G, z, z2, c, gen, rows)
         img = _synth(G, ws, gen, rows)
-        logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat)
+        logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat, rows=rows)
         return _bmean(F.softplus(-logits), rows), w_mean
 
     def loss_g_pl(G, pl_mean, z, z2, c, gen, pl_noise=None, rows=None):
@@ -254,8 +255,8 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda', mesh=None):
         with torch.no_grad():
             ws, _ = _map_mix(G, z, z2, c, gen, rows)
             img = _synth(G, ws, gen, rows)
-        gen_logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat)
-        real_logits = D(_maybe_aug(real, gen, p, rows), c, remat=cfg.remat)
+        gen_logits = D(_maybe_aug(img, gen, p, rows), c, remat=cfg.remat, rows=rows)
+        real_logits = D(_maybe_aug(real, gen, p, rows), c, remat=cfg.remat, rows=rows)
         loss_gen = _bmean(F.softplus(gen_logits), rows)
         loss_real = _bmean(F.softplus(-real_logits), rows)
         rt = _bmean(torch.sign(real_logits.detach()), rows)
@@ -265,7 +266,7 @@ def make_train_fns(g_cfg, d_cfg, cfg, device='cuda', mesh=None):
         """R1 penalty on the (already augmented) reals (lazy: x
         d_reg_interval and gamma / 2 folded in) -> (loss, mean penalty)."""
         img = aug_real.detach().requires_grad_(True)
-        logits = D(img, c, remat=cfg.remat)
+        logits = D(img, c, remat=cfg.remat, rows=rows)
         r1_grads, = torch.autograd.grad(logits.sum(), img, create_graph=True)
         penalty = _bmean(r1_grads.square().sum(dim=[1, 2, 3]), rows)
         loss = penalty * (cfg.r1_gamma / 2.0) * cfg.d_reg_interval

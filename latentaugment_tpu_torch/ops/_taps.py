@@ -52,7 +52,9 @@ def polyphase_table(taps, up, pad):
     a = phi, phi + up, ... With m = up * g + e (e in [0, up), g any
     integer), the table's row e holds the live taps placed so that entry
     k multiplies input g + j0 + k: len(taps) / up + 1 entries, the first
-    or the last of them 0. Returns (rows, j0)."""
+    or the last of them 0. Any `up` that divides the tap count: 2 for the
+    4-tap `u2d1` variant, 2 and 4 for `sepn`'s 12- and 24-tap filters.
+    Returns (rows, j0)."""
     n, rem = divmod(len(taps), up)
     if rem:
         raise ValueError(f"{len(taps)} taps do not split into {up} phases")

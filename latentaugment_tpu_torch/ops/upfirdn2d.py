@@ -22,12 +22,14 @@ K2 is bound by bytes (`work` counts them). `_plan` picks, from the
 geometry alone, one of the kernel's variants and its tile: `u1d1`, `u1d2`
 and `u2d1` (the separable 4-tap filter at the three rate pairs of the
 StyleGAN2 walk and its backward: a staged shared-memory tile, two
-register-blocked 1-D passes, taps as kernel parameters) or `generic`
-(2-D filters, other rates, other tap counts: one thread per output),
-which has two instantiations: tap loops unrolled for at most 4 taps per
-axis, and a tap count known only at run time for up to 64 (StyleGAN3-R's
-12- and 24-tap up filters and radial 12x12 down filter, on the
-decomposed filtered_lrelu). The launcher refuses a plan that does not
+register-blocked 1-D passes, taps as kernel parameters), `sepn` (the
+same design for StyleGAN3-R's 1-D filters on the decomposed
+filtered_lrelu: up 2 with 12 taps, up 4 with 24, and their backwards at
+down 2 and 4, with host-built polyphase tables) or `generic` (2-D
+filters, other rates, other tap counts: one thread per output), which
+has two instantiations: tap loops unrolled for at most 4 taps per axis,
+and a tap count known only at run time for up to 64 (StyleGAN3-R's
+radial 12x12 down filter). The launcher refuses a plan that does not
 fit its variant, and nothing retries through another one.
 `variant_launches` counts launches by variant. The header of the .cu
 file says what bounds it and how.
@@ -45,7 +47,7 @@ from . import _build, _taps
 # Launches of kernel K2 (forward and backward), counted where launched,
 # in all and by the plan's variant.
 launches = {'upfirdn2d': 0}
-variant_launches = {'u1d1': 0, 'u1d2': 0, 'u2d1': 0, 'generic': 0}
+variant_launches = {'u1d1': 0, 'u1d2': 0, 'u2d1': 0, 'sepn': 0, 'generic': 0}
 
 
 def _parse_scaling(scaling):
@@ -200,6 +202,11 @@ _MAX_TAPS = 64  # per axis, of `generic`; UPFIRDN2D_MAX_TAPS in the .cu file
 _MAX_SMEM_BYTES = 232448  # 227 KB, the most a block can take
 # Output tile (rows, columns) of the separable variants on a large map.
 _SEP4_TILES = {'u1d1': (32, 128), 'u1d2': (32, 64), 'u2d1': (32, 128)}
+# `sepn`: (up, down, taps) -> output tile; each block stays under ~112 KB
+# of shared memory, so that at least two fit an SM.
+_SEPN_TILES = {(2, 1, 12): (64, 128), (4, 1, 24): (64, 128), (1, 2, 12): (32, 64),
+               (1, 4, 24): (16, 32)}
+_SEPN_MAX_TAPS = 28  # UPFIRDN2D_SEPN_MAX_TAPS in the .cu file
 
 
 def _library():
@@ -211,6 +218,8 @@ def _library():
         fn.restype = i
         lib.upfirdn2d_sep4_launch.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 11 + [p] * 3
         lib.upfirdn2d_sep4_launch.restype = i
+        lib.upfirdn2d_sepn_launch.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 12 + [p] * 3
+        lib.upfirdn2d_sepn_launch.restype = i
     return lib
 
 
@@ -227,14 +236,39 @@ def _sep4_smem_bytes(up, down, toh, tow):
     return 4 * (xh * _round_up(xw, 4) + xh * tow)
 
 
+def _sepn_rows_per_item(up, down):
+    """Output rows of one H-pass work item of `sepn` (sepn_rows_per_item
+    in the .cu file): a tile's rows are a multiple of it."""
+    return 8 if up > 1 else (2 if down == 2 else 1)
+
+
+def _sepn_smem_bytes(up, down, taps, toh, tow):
+    """Shared memory of `sepn` (sepn_smem_bytes in the .cu file): the
+    staged tile with its halo and the rows filtered along W."""
+    def window(n):
+        return (n - 1) * down + taps if up == 1 else n // up + taps // up
+    xh, xw = window(toh), window(tow)
+    px = xw + (6 - xw % 4) % 4  # row pitches: 2 mod 4, and 4 more than the tile
+    return 4 * (_round_up(xh * px, 4) + xh * (tow + 4))
+
+
 def _plan(f_shape, up, down, out_hw):
     """The kernel variant and tile for a filter of shape `f_shape`, rate
     pairs `up` and `down` (x, y) and an output of `out_hw`: a dict with
     'variant' and, for the separable variants, the output tile ('toh',
-    'tow') and its shared memory ('smem'). `generic` takes up to
-    _MAX_TAPS taps per axis (its launcher picks the unrolled
-    instantiation for 4 or fewer); a larger filter raises."""
-    sep4 = tuple(f_shape) == (4,) and up[0] == up[1] and down[0] == down[1]
+    'tow') and its shared memory ('smem'; `sepn` also its 'taps').
+    `generic` takes up to _MAX_TAPS taps per axis (its launcher picks the
+    unrolled instantiation for 4 or fewer); a larger filter raises."""
+    same = up[0] == up[1] and down[0] == down[1]
+    sepn = len(f_shape) == 1 and same and (up[0], down[0], f_shape[0]) in _SEPN_TILES
+    if sepn:
+        key = (up[0], down[0], f_shape[0])
+        toh, tow = _SEPN_TILES[key]
+        toh = min(toh, _round_up(out_hw[0], _sepn_rows_per_item(up[0], down[0])))
+        tow = min(tow, _round_up(out_hw[1], 8))
+        return dict(variant='sepn', taps=key[2], toh=toh, tow=tow,
+                    smem=_sepn_smem_bytes(*key, toh, tow))
+    sep4 = tuple(f_shape) == (4,) and same
     variant = {(1, 1): 'u1d1', (1, 2): 'u1d2', (2, 1): 'u2d1'}.get((up[0], down[0])) \
         if sep4 else None
     if variant is None:
@@ -285,6 +319,23 @@ def _sep4_taps(f, variant, padding, flip_filter, gain):
         tx, ty, ox, oy = taps, taps, padx0, pady0
     ty = tuple(t * gain for t in ty)
     return _taps.c_floats(tx, 8), _taps.c_floats(ty, 8), ox, oy
+
+
+def _sepn_taps(f, up, down, padding, flip_filter, gain):
+    """Host arrays (tx, ty) and origins (ox, oy) of a `sepn` launch: the T
+    correlation taps and the low padding, or for up > 1 the polyphase
+    tables (up rows of T / up + 1 taps) and the input index of their first
+    entry. The gain rides on the taps along H."""
+    taps = _taps.correlation_taps(_taps.host_taps(f), flip_filter)
+    padx0, _, pady0, _ = padding
+    if up > 1:
+        rows_x, ox = _taps.polyphase_table(taps, up, padx0)
+        rows_y, oy = _taps.polyphase_table(taps, up, pady0)
+        tx, ty = sum(rows_x, ()), sum(rows_y, ())
+    else:
+        tx, ty, ox, oy = taps, taps, padx0, pady0
+    ty = tuple(t * gain for t in ty)
+    return _taps.c_floats(tx, _SEPN_MAX_TAPS), _taps.c_floats(ty, _SEPN_MAX_TAPS), ox, oy
 
 
 def _output_shape(x, f, up, down, padding):
@@ -345,9 +396,15 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
                 n * c, in_h, in_w, out_h, out_w, upx, upy, downx, downy,
                 padx0, pady0, fw, fh, int(f.ndim == 1), int(flip_filter),
                 float(gain), stream)
+        elif plan['smem'] > _MAX_SMEM_BYTES:
+            raise RuntimeError(f"upfirdn2d plan {plan} exceeds the card's shared memory")
+        elif plan['variant'] == 'sepn':
+            tx, ty, ox, oy = _sepn_taps(f, upx, downx, padding, flip_filter, float(gain))
+            err = lib.upfirdn2d_sepn_launch(
+                x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * c, in_h, in_w,
+                out_h, out_w, upx, downx, plan['taps'], ox, oy, plan['toh'], plan['tow'],
+                plan['smem'], ctypes.addressof(tx), ctypes.addressof(ty), stream)
         else:
-            if plan['smem'] > _MAX_SMEM_BYTES:
-                raise RuntimeError(f"upfirdn2d plan {plan} exceeds the card's shared memory")
             tx, ty, ox, oy = _sep4_taps(f, plan['variant'], padding, flip_filter, float(gain))
             err = lib.upfirdn2d_sep4_launch(
                 x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * c, in_h, in_w,

@@ -18,10 +18,16 @@ whole global batch on every rank, which then takes its rows, so the
 generators stay in step and a run over N ranks is the one-process run.
 
 A minibatch-stddev layer (the discriminator's epilogue) couples samples
-j, j + n/g, j + 2n/g, ... of a batch of n in groups of g. `shard_rows`
-with `group_size` g hands each rank whole groups, ordered so that its
-local reshape forms exactly the global groups; no collective is needed
-inside D.
+j, j + n/g, j + 2n/g, ... of a batch of n in groups of g. Where whole
+groups fit a rank, `shard_rows` with `group_size` g hands each rank
+whole groups, ordered so that its local reshape forms exactly the global
+groups, and no collective is needed inside D. Where they do not (a batch
+of 8 on 8 ranks, 4 on 2), each rank holds a contiguous block of rows and
+D's epilogue gathers its input across the ranks (`Rows.gather_grad`, a
+gather that autograd differentiates to any order), forms the global
+groups and keeps its own rows. A batch need only split evenly over the
+ranks, as in the JAX package; the metrics pad theirs instead
+(`shard_rows(..., pad=True)`).
 
 Collectives go through the group of the mesh's data axis: NCCL with one
 rank per card in production; gloo on the CPU, and for two ranks on one
@@ -250,16 +256,21 @@ def pad_to_multiple(x, multiple, axis=0):
 
 
 class Rows:
-    """One rank's rows of a global batch of `n`. `order` [n] lists the
-    global positions of every rank's rows, rank after rank, each rank's
-    in its local order; this rank holds `order[lo:hi]`."""
+    """One rank's rows of a global batch of `n`. `order` lists the global
+    positions of every rank's rows, rank after rank, each rank's in its
+    local order; this rank holds `order[lo:hi]`. A padded split
+    (`shard_rows(..., pad=True)`) lists position n - 1 again at the end
+    (edge padding, as `pad_to_multiple`); `gather` drops those rows.
+    `group` is the minibatch-stddev group size whose groups each rank's
+    local reshape forms (1 where the rows make no groups)."""
 
-    def __init__(self, n, order, bounds, rank, mesh):
+    def __init__(self, n, order, bounds, rank, mesh, group=1):
         self.n = int(n)
         self.order = order
         self.bounds = bounds
         self.index = order[bounds[rank]:bounds[rank + 1]]
         self.mesh = mesh
+        self.group = int(group)
         self._on = {}
 
     @property
@@ -271,6 +282,11 @@ class Rows:
         """n_local / n: a mean over the local rows times this is the
         rank's share of the global mean."""
         return self.n_local / self.n
+
+    def holds_groups(self, group_size):
+        """Whether each rank's local reshape(g, -1) forms the global
+        minibatch-stddev groups of size g = min(group_size, n)."""
+        return self.group == max(1, min(int(group_size), self.n))
 
     def _index_on(self, device, which="index"):
         key = (which, str(device))
@@ -302,35 +318,85 @@ class Rows:
         """All-reduce sum over the ranks of the mesh."""
         return all_sum(t, self.mesh)
 
+    def _place(self, parts):
+        """The global batch [n, ...] from the ranks' rows in rank order."""
+        order = self._index_on(parts.device, "order")[:self.n]
+        out = torch.empty((self.n, *parts.shape[1:]), dtype=parts.dtype, device=parts.device)
+        out[order] = parts[:self.n]
+        return out
+
     def gather(self, x):
         """The global batch [n, ...] from every rank's local rows, in the
         global order, on every rank."""
-        parts = torch.cat(all_gather(x, self.mesh))
-        out = torch.empty((self.n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-        out[self._index_on(x.device, "order")] = parts
-        return out
+        return self._place(torch.cat(all_gather(x, self.mesh)))
+
+    def gather_grad(self, x):
+        """`gather` under autograd: the gradient of a rank's local rows is
+        the sum over the ranks of the gradients of their copies of the
+        global batch. Its backward is a differentiable Function too, so
+        second derivatives (R1) pass through it."""
+        return _GatherRows.apply(x, self)
 
 
-def shard_rows(n, mesh, group_size=1):
+class _GatherRows(torch.autograd.Function):
+    """x [n_local, ...] -> the global batch [n, ...] on every rank. The
+    adjoint of a gather is an all-reduce of the global gradient followed
+    by taking the local rows (`_ReduceTakeRows`), whose adjoint is this
+    gather again."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return rows.gather(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _ReduceTakeRows.apply(dy, ctx.rows), None
+
+
+class _ReduceTakeRows(torch.autograd.Function):
+    """y [n, ...] on every rank -> this rank's rows of their sum."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        ctx.rows = rows
+        return rows.take(rows.sum(y.contiguous()))
+
+    @staticmethod
+    def backward(ctx, dx):
+        return _GatherRows.apply(dx, ctx.rows), None
+
+
+def shard_rows(n, mesh, group_size=1, pad=False):
     """This rank's Rows of a global batch of `n` over the mesh's batch
     axis. With `group_size` g (a minibatch-stddev layer's, effective
-    min(g, n)), sample i = k * (n / g) + j belongs to group j; each rank
-    takes a block of whole groups j, and orders its rows k-major, so that
-    its local reshape(g, -1) forms exactly the global groups. With g = 1
-    the ranks hold contiguous blocks."""
+    min(g, n)), sample i = k * (n / g) + j belongs to group j. Where n
+    splits into whole groups on every rank (n % (g * world) == 0), each
+    rank takes a block of whole groups j and orders its rows k-major, so
+    that its local reshape(g, -1) forms exactly the global groups.
+    Otherwise, and with g = 1, the ranks hold contiguous blocks, and a
+    minibatch-stddev layer gathers across them (`Rows.holds_groups`).
+    n must split evenly over the ranks, unless `pad`: then the batch is
+    padded to a multiple of the ranks by repeating row n - 1, for
+    computations that treat each row alone (the metrics' detectors,
+    generator and distance tiles)."""
     world, rank = world_size(mesh), data_rank(mesh)
     g = max(1, min(int(group_size), n))
-    if n % (g * world):
-        raise ValueError(
-            f"a batch of {n} does not split into {world} ranks of whole groups of {g} "
-            f"(minibatch stddev): pad it to a multiple of {g * world}")
-    m = n // g                   # number of groups
-    per = m // world             # groups per rank
-    k = torch.arange(g)
-    order = torch.cat([(k[:, None] * m + torch.arange(r * per, (r + 1) * per)[None, :])
-                       .reshape(-1) for r in range(world)])
-    bounds = [r * g * per for r in range(world + 1)]
-    return Rows(n, order, bounds, rank, mesh)
+    if n % (g * world) == 0:
+        m = n // g                   # number of groups
+        per = m // world             # groups per rank
+        k = torch.arange(g)
+        order = torch.cat([(k[:, None] * m + torch.arange(r * per, (r + 1) * per)[None, :])
+                           .reshape(-1) for r in range(world)])
+        bounds = [r * g * per for r in range(world + 1)]
+        return Rows(n, order, bounds, rank, mesh, group=g)
+    if n % world and not pad:
+        raise ValueError(f"a batch of {n} does not split over {world} ranks: pad it to a "
+                         f"multiple of {world}")
+    per = -(-n // world)
+    order = torch.arange(per * world).clamp(max=n - 1)
+    bounds = [r * per for r in range(world + 1)]
+    return Rows(n, order, bounds, rank, mesh, group=1)
 
 
 def free_port():

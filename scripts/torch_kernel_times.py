@@ -3,7 +3,7 @@
 (filtered_lrelu) at the shapes of the StyleGAN2 and StyleGAN3 walks.
 
     python3 scripts/torch_kernel_times.py [--root CHECKOUT] [--resources] [--out FILE]
-                                          [--only CASE,CASE] [--sweep-tiles]
+                                          [--only CASE,CASE] [--sweep-tiles] [--sg3r-walk]
 
 Needs one CUDA device and nvcc. `--root` names the checkout whose
 `latentaugment_tpu_torch` is timed (default: the one this file is in), so
@@ -16,8 +16,16 @@ calls); the inputs of one case (up to 0.9 GB) exceed the 50 MB L2 cache.
 `--sweep-tiles` times K3's large layers once per output tile of a fixed
 list in place of the plan's own choice (tile null), to check the plan's
 cost model against the card; tiles whose shared memory does not fit are
-reported as refused. One JSON object per line on stdout, then the card's
-name and power limit.
+reported as refused. The StyleGAN3-R cases (`R L11 fu up 2`, `R L10 fu up
+4`, `R L10 radial fd down 2`) time K2 on the R plan's largest layers at
+batch 16 in bf16, through whatever variant the checkout's plan picks.
+With `--sweep-tiles` the 1-D cases also run `sepn` at a few other tiles.
+`--sg3r-walk` also times the SG3-R walk (benchmark.build_synthetic_setup
+at batch 16: K=10 Adam steps and the final synthesis; median of 3, CUDA
+events) and splits one walk's device time under torch.profiler by kind
+of kernel, K2 by variant (`sepn`, `sep4`, `generic`: the kernels'
+names). One JSON object per line on stdout, then the card's name and
+power limit.
 """
 
 import argparse
@@ -55,6 +63,80 @@ def time_case(torch, fn, x):
     return fwd, bwd
 
 
+# Device time by kind: K2 by variant first (its kernels' names), then the
+# kinds of profile_walk.py, copied so that another checkout's package is
+# split the same way.
+_KINDS = (
+    ("K2 upfirdn2d sepn", ("upfirdn2d_kernel_sepn",)),
+    ("K2 upfirdn2d sep4", ("upfirdn2d_kernel_sep4",)),
+    ("K2 upfirdn2d generic", ("upfirdn2d_kernel",)),
+    ("K3 filtered_lrelu", ("filtered_lrelu_kernel",)),
+    ("K1 bias_act", ("bias_act_fwd", "bias_act_bwd")),
+    ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw")),
+    ("cuDNN conv dgrad", ("dgrad",)),
+    ("cuDNN conv fprop/other", ("cudnn", "conv", "xmma", "implicit_gemm")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "CatArrayBatchedCopy", "fill", "copy")),
+    ("memcpy/memset", ("Memcpy", "Memset")),
+)
+
+
+def sg3r_walk(torch, dev, batch=16, reps=3):
+    """The SG3-R walk of the checkout's package: samples/s over `reps`
+    walks after one to warm up, and one walk under torch.profiler, its
+    device time by kind (busy = the union of kernel intervals)."""
+    import time
+
+    from latentaugment_tpu_torch import benchmark
+    from latentaugment_tpu_torch.augments import manifold
+    from latentaugment_tpu_torch.ops import upfirdn2d as up
+
+    fns, bundle, g_cfg = benchmark.build_synthetic_setup(dev, arch="stylegan3", **benchmark.SG3R)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w0 = torch.randn([batch, 1, g_cfg.w_dim], generator=gen, device=dev) * 0.5
+    crop_pos = manifold.get_params(g_cfg.img_resolution, 64)["crop_pos"]
+
+    def walk():
+        return fns.walk(bundle, w0, crop_pos, gen)
+
+    walk()
+    torch.cuda.synchronize()
+    before = dict(up.variant_launches)
+    walk_ms = median_ms(torch, walk, n=reps, warmup=0)
+    launches = {k: (v - before[k]) // reps for k, v in up.variant_launches.items()}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        walk()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kinds = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        if end <= start:
+            continue
+        spans.append((start, end))
+        kind = next((k for k, keys in _KINDS if any(key in evt.name for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
+    busy, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy = (busy + (0.0 if cur is None else cur[1] - cur[0])) / 1e3
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"kernel": "sg3r_walk", "batch": batch, "walk_ms": walk_ms,
+            "samples_per_s": batch / walk_ms * 1e3, "upfirdn2d_launches_by_variant": launches,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -62,6 +144,7 @@ def main():
     ap.add_argument("--out", default=None, help="also append the JSON lines to this file")
     ap.add_argument("--only", default=None, help="comma-separated case names (L10, 'G blur 257->256', ...)")
     ap.add_argument("--sweep-tiles", action="store_true")
+    ap.add_argument("--sg3r-walk", action="store_true")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
     sys.path.insert(0, os.path.abspath(args.root))
@@ -156,6 +239,59 @@ def main():
               "dtype": str(dtype).split(".")[1], "fwd_ms": fwd, "bwd_ms": bwd})
         del x
         torch.cuda.empty_cache()
+
+    # StyleGAN3-R: K2 on the R plan's largest decomposed layers, batch 16.
+    from latentaugment_tpu_torch import benchmark
+
+    g_cfg, _ = benchmark.make_gd_configs(256, 2, num_fp16_res=0, arch="stylegan3",
+                                         channel_base=32768, channel_max=512, **benchmark.SG3R)
+    r_layers = {layer.name.split("_")[0]: layer for layer in g_cfg.layers if layer.down_radial}
+    for name, lname, which in [("R L11 fu up 2", "L11", "fu"), ("R L10 fu up 4", "L10", "fu"),
+                               ("R L10 radial fd down 2", "L10", "fd")]:
+        if only and name not in only:
+            continue
+        layer = r_layers[lname]
+        fu, fd = (torch.as_tensor(f, device=dev) for f in net3._layer_filters(layer))
+        lo, hi = layer.padding
+        n_in = layer.in_size
+        if which == "fu":
+            shape, fr = [16, layer.out_channels, n_in, n_in], fu
+            kw = dict(up=layer.up_factor, padding=(lo, hi, lo, hi), gain=layer.up_factor ** 2)
+        else:
+            mid = n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1)
+            shape, fr, kw = [16, layer.out_channels, mid, mid], fd, dict(down=layer.down_factor)
+        x = torch.randn(shape, generator=g, device=dev).to(bf16)
+        # --sweep-tiles: `sepn`'s tiles of this case's forward and backward
+        # rows, in place of the plan's (up, down, taps) -> tile.
+        u, t = layer.up_factor, fr.shape[0]
+        sweep = [None]
+        if args.sweep_tiles and which == "fu" and hasattr(up, "_SEPN_TILES"):
+            sweep += [{(u, 1, t): fwd_tile, (1, u, t): bwd_tile} for fwd_tile, bwd_tile in
+                      [((32, 128), (32, 32)), ((64, 64), (16, 64)), ((32, 256), (8, 64)),
+                       ((128, 128), (32, 64))]]
+        planned = dict(getattr(up, "_SEPN_TILES", {}))
+        for tiles_now in sweep:
+            up._SEPN_TILES = {**planned, **(tiles_now or {})}
+            before = dict(up.variant_launches)
+            row = {"kernel": "upfirdn2d", "case": name, "shape": shape, "dtype": "bfloat16"}
+            if tiles_now is not None:
+                row["sepn_tiles"] = {str(k): v for k, v in tiles_now.items()}
+            try:
+                row["fwd_ms"], row["bwd_ms"] = time_case(
+                    torch, lambda x: up.upfirdn2d(x, fr, **kw), x)
+            except RuntimeError as e:
+                if tiles_now is None:
+                    raise
+                row["refused"] = str(e)[:80]
+            row["variants"] = sorted(k for k, v in up.variant_launches.items() if v != before[k])
+            emit(row)
+        if planned:
+            up._SEPN_TILES = planned
+        del x
+        torch.cuda.empty_cache()
+
+    if args.sg3r_walk:
+        emit(sg3r_walk(torch, dev))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()

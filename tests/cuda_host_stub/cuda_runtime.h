@@ -27,6 +27,7 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -209,24 +209,26 @@ def test_upfirdn2d_2d_filter_takes_the_generic_kernel(emulated):
 # StyleGAN3-R's layers on the decomposed filtered_lrelu, as the 256x256
 # plan (generator_config(use_radial_filters=True, conv_kernel=1)) gives
 # them, at a few pixels: the 1-D up filter (12 taps at up 2, 24 at up 4)
-# and the radial 12x12 down filter at down 2, each forward and backward
-# through the run-time generic instantiation.
+# through `sepn`, and the radial 12x12 down filter at down 2 through the
+# run-time generic instantiation, each forward and backward.
 SG3R_CASES = {
     "radial fd 12x12, down 2": ([1, 2, 30, 27], (12, 12), dict(down=2), "generic"),
     "radial fd 12x12, down 2, corr": ([2, 1, 29, 30], (12, 12),
                                       dict(down=2, flip_filter=True), "generic"),
     "fu 12 taps, up 2, pad (11,10)": ([1, 2, 9, 11], (12,),
-                                      dict(up=2, padding=(11, 10, 11, 10), gain=4), "generic"),
+                                      dict(up=2, padding=(11, 10, 11, 10), gain=4), "sepn"),
     "fu 24 taps, up 4, crop (-2,-5)": ([1, 1, 9, 10], (24,),
-                                       dict(up=4, padding=(-2, -5, -2, -5), gain=16), "generic"),
+                                       dict(up=4, padding=(-2, -5, -2, -5), gain=16), "sepn"),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", list(SG3R_CASES))
 def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
-    """K2 `generic` with its tap count at run time on the R plan's filters
-    against the plain version: 1e-5 in float32, 1e-2 in bfloat16."""
+    """K2 on the R plan's filters against the plain version: the radial
+    filter through `generic` with its tap count at run time, the 1-D up
+    filters (and their backwards at down 2 and 4) through `sepn`; 1e-5 in
+    float32, 1e-2 in bfloat16."""
     shape, f_shape, kw, variant = SG3R_CASES[name]
     g = torch.Generator().manual_seed(len(name))
     f = torch.randn(f_shape, generator=g) / f_shape[0]
@@ -235,7 +237,7 @@ def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
             up._parse_padding(kw.get("padding", 0)), bool(kw.get("flip_filter", False)),
             float(kw.get("gain", 1)))
     plan = up._plan(f_shape, *args[:2], (1, 1))
-    assert plan == dict(variant=variant)
+    assert plan["variant"] == variant
     xr = x.clone().requires_grad_(True)
     y_r = up._upfirdn2d_ref(xr, f, *args[:2], kw.get("padding", 0), args[3], args[4])
     dy = torch.randn(y_r.shape, generator=g).to(dtype)
@@ -252,10 +254,61 @@ def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
     assert _rel_err(dx_k, dx_r) <= tol
 
 
+# `sepn` called directly at a few pixels: each of its four (up, down, taps)
+# rows, odd and even output widths, padding and crops, both flips, and
+# maps of more than one tile each way. The backward is `sepn` again (up
+# and down swapped).
+SEPN_CASES = {
+    "up 2, 12 taps, odd out_w": ([1, 2, 9, 11], 12, dict(up=2, padding=(11, 9, 11, 10), gain=4)),
+    "up 2, 12 taps, 2x2 tiles": ([1, 1, 36, 66], 12, dict(up=2, padding=(11, 10, 11, 10), gain=4)),
+    "up 4, 24 taps, crop, corr": ([3, 1, 9, 10], 24,
+                                  dict(up=4, padding=(-2, -5, -3, -4), gain=16, flip_filter=True)),
+    "down 2, 12 taps, crop, corr": ([1, 2, 30, 27], 12,
+                                    dict(down=2, padding=(-1, 2, 3, -2), flip_filter=True)),
+    "down 4, 24 taps, even out_w": ([2, 1, 41, 50], 24, dict(down=4, padding=(5, 6, 2, 3))),
+    "down 4, 24 taps, odd out_w, crop": ([1, 1, 45, 53], 24,
+                                         dict(down=4, padding=(-3, 0, 1, -1), gain=2)),
+    "down 4, 24 taps, 2x2 tiles": ([1, 1, 80, 150], 24, dict(down=4, padding=(10, 11, 10, 11))),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SEPN_CASES))
+def test_upfirdn2d_sepn_sources_match_plain(emulated, name, dtype):
+    """K2's staged polyphase variant against the plain version, forward
+    and backward: 1e-5 in float32, 1e-2 in bfloat16."""
+    shape, taps, kw = SEPN_CASES[name]
+    g = torch.Generator().manual_seed(len(name))
+    f = torch.randn([taps], generator=g) / taps
+    x = torch.randn(shape, generator=g).to(dtype)
+    args = (up._parse_scaling(kw.get("up", 1)), up._parse_scaling(kw.get("down", 1)),
+            up._parse_padding(kw["padding"]), bool(kw.get("flip_filter", False)),
+            float(kw.get("gain", 1)))
+    xr = x.clone().requires_grad_(True)
+    y_r = up._upfirdn2d_ref(xr, f, *args[:2], kw["padding"], args[3], args[4])
+    dy = torch.randn(y_r.shape, generator=g).to(dtype)
+    dx_r, = torch.autograd.grad(y_r, xr, dy)
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    xk = x.clone().requires_grad_(True)
+    y_k = up._Upfirdn2dFunction.apply(xk, f, *args)
+    dx_k, = torch.autograd.grad(y_k, xk, dy)
+    assert up.launches["upfirdn2d"] == n + 2 and up.variant_launches == dict(nv, sepn=nv["sepn"] + 2)
+    assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
+    if "odd" in name:
+        assert y_k.shape[3] % 2 == 1
+    if "tiles" in name:
+        plan = up._plan((taps,), *args[:2], tuple(y_k.shape[2:]))
+        assert y_k.shape[2] > plan["toh"] and y_k.shape[3] > plan["tow"]
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    assert _rel_err(y_k, y_r.detach()) <= tol
+    assert _rel_err(dx_k, dx_r) <= tol
+
+
 def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatch):
     """The decomposed form with impl='auto', as filtered_lrelu runs it for a
     CUDA tensor and a 2-D fd (the route itself: test_torch_port_plans.py):
-    both FIRs through the host-built K2 `generic` (run-time taps), the two
+    both FIRs through the host-built K2 (the 1-D up filter through `sepn`,
+    the radial down filter through `generic` with run-time taps), the two
     bias_act steps through K1's stand-in launchers, never K3; against the
     plain version at the R plan's L0 geometry, 1e-5 in float32."""
     monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
@@ -287,7 +340,7 @@ def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatc
     b = torch.randn([2], generator=g)
     args = (2, 2, (11, 10, 11, 10), 2 ** 0.5, 0.2, 0.5, False)
     n_k3, n_ba = dict(fl.launches), dict(ba.launches)
-    n_up = up.variant_launches["generic"]
+    n_up = dict(up.variant_launches)
     xk = x.clone().requires_grad_(True)
     y_k = fl._decomposed(xk, fu, fd, b, *args, impl="auto")
     dy = torch.randn(y_k.shape, generator=g)
@@ -295,7 +348,10 @@ def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatc
     monkeypatch.undo()
     assert impls == ["auto"] * 4
     assert fl.launches == n_k3
-    assert up.variant_launches["generic"] == n_up + 4  # two FIRs, forward and backward
+    # The 1-D up FIR through `sepn`, the 2-D down FIR through `generic`,
+    # each forward and backward.
+    assert up.variant_launches == dict(n_up, sepn=n_up["sepn"] + 2,
+                                       generic=n_up["generic"] + 2)
     assert ba.launches["bias_act_fwd"] == n_ba["bias_act_fwd"] + 2
     xr = x.clone().requires_grad_(True)
     y_r = fl._filtered_lrelu_ref(xr, fu, fd, b, *args)
@@ -358,6 +414,29 @@ def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
     assert launch_g(4) == 0
     assert launch_g(64) == 0
     assert launch_g(65) == 1
+
+    # `sepn`: its four (up, down, taps) rows only, its own shared memory,
+    # tiles its items split.
+    ks = host_libraries["upfirdn2d.cu"].upfirdn2d_sepn_launch
+    ks.argtypes = [p, p, i, ll] + [i] * 12 + [p] * 3
+    plan_s = up._plan((24,), (1, 1), (4, 4), (4, 4))
+    x3 = torch.zeros([1, 1, 20, 20])
+    taps_s = (ctypes.c_float * 28)()
+
+    def launch_s(up_=1, down=4, taps=24, toh=plan_s["toh"], tow=plan_s["tow"],
+                 smem=plan_s["smem"]):
+        return ks(x3.data_ptr(), y.data_ptr(), 0, 1, 20, 20, 4, 4, up_, down, taps, 0, 0,
+                  toh, tow, smem, ctypes.addressof(taps_s), ctypes.addressof(taps_s), None)
+
+    assert launch_s() == 0
+    assert launch_s(smem=plan_s["smem"] + 4) == 1
+    assert launch_s(tow=plan_s["tow"] + 4) == 1
+    assert launch_s(taps=12) == 1
+    assert launch_s(up_=2, down=2) == 1
+    assert launch_s(up_=2, down=1, taps=12, toh=8,
+                    smem=up._sepn_smem_bytes(2, 1, 12, 8, plan_s["tow"])) == 0
+    assert launch_s(up_=2, down=1, taps=12, toh=4,  # up: rows a multiple of 8
+                    smem=up._sepn_smem_bytes(2, 1, 12, 4, plan_s["tow"])) == 1
 
 
 def _second_order(fn, x, dy1, dy2):

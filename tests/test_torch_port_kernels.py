@@ -191,27 +191,69 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["radial 12x12 down 2", "24 taps up 4"])
 def test_upfirdn2d_runtime_taps_match_plain(cuda, case, dtype):
-    """K2 `generic` with its tap count at run time on StyleGAN3-R's
-    filters (the R plan's L10 at a few channels): 1e-5 in float32, 1e-2
-    in bfloat16, forward and backward."""
+    """K2 on StyleGAN3-R's filters (the R plan's L10 at a few channels):
+    the radial filter through `generic` with its tap count at run time,
+    the 1-D 24-tap up filter through `sepn`; 1e-5 in float32, 1e-2 in
+    bfloat16, forward and backward."""
     g = torch.Generator(device=cuda).manual_seed(3)
     if case.startswith("radial"):
         f = torch.randn([12, 12], generator=g, device=cuda) / 12
-        shape, kw = [2, 8, 562, 562], dict(down=2)
+        shape, kw, variant = [2, 8, 562, 562], dict(down=2), "generic"
     else:
         f = torch.randn([24], generator=g, device=cuda) / 24
         shape, kw = [2, 8, 148, 148], dict(up=4, padding=(-2, -5, -2, -5), gain=16)
+        variant = "sepn"
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
 
     def fn(x, impl):
         return up.upfirdn2d(x, f, impl=impl, **kw)
 
-    n = up.variant_launches["generic"]
+    n = up.variant_launches[variant]
     with torch.no_grad():
         dy = torch.randn(fn(x, "ref").shape, generator=g, device=cuda).to(dtype)
     y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
     y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
-    assert up.variant_launches["generic"] == n + 2
+    assert up.variant_launches[variant] == n + 2
+    assert _rel_err(y_k, y_r) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL[dtype]
+
+
+# `sepn` at the R plan's sizes (a few channels): (taps, input shape,
+# arguments); each backward is `sepn` at the swapped rates.
+SEPN_GPU_CASES = {
+    "up 2, 12 taps, L11": (12, [2, 4, 276, 276], dict(up=2, padding=(11, 10, 11, 10), gain=4)),
+    "up 2, 12 taps, odd width, corr": (12, [1, 3, 35, 41],
+                                       dict(up=2, padding=(11, 9, 10, 11), gain=4,
+                                            flip_filter=True)),
+    "up 4, 24 taps, L10": (24, [2, 4, 148, 148], dict(up=4, padding=(-2, -5, -2, -5), gain=16)),
+    "down 2, 12 taps, crop": (12, [2, 4, 562, 561], dict(down=2, padding=(-1, 2, 3, -2))),
+    "down 4, 24 taps, odd width, corr": (24, [1, 3, 97, 101],
+                                         dict(down=4, padding=(4, 3, 5, 6), flip_filter=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(SEPN_GPU_CASES))
+def test_upfirdn2d_sepn_matches_plain(cuda, case, dtype):
+    """K2's staged polyphase variant against the plain version: 1e-5 in
+    float32, 1e-2 in bfloat16, forward and backward, both through
+    `sepn`."""
+    taps, shape, kw = SEPN_GPU_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    f = torch.randn([taps], generator=g, device=cuda) / taps
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return up.upfirdn2d(x, f, impl=impl, **kw)
+
+    n = dict(up.variant_launches)
+    with torch.no_grad():
+        dy = torch.randn(fn(x, "ref").shape, generator=g, device=cuda).to(dtype)
+    y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
+    y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
+    torch.cuda.synchronize()
+    assert up.variant_launches == dict(n, sepn=n["sepn"] + 2)
+    assert y_k.shape == y_r.shape and dx_k.shape == x.shape
     assert _rel_err(y_k, y_r) <= TOL[dtype]
     assert _rel_err(dx_k, dx_r) <= TOL[dtype]
 

@@ -13,11 +13,20 @@ inputs. Each check is its own test over the shared results:
     policy with --n_mesh_devices 2, and forward_ganrand;
   * the minibatch-stddev grouping: D over a batch whose ranks each hold
     two groups equals the 1-process D, where a contiguous split does not;
+    where whole groups do not fit a rank (batch 4 on 2 ranks, 8 on 4), D
+    gathers its epilogue input: the walk at 2 ranks x batch 4 and at 4
+    ranks x batch 8, D itself, and a Dr1 step (R1 differentiates through
+    the gather twice) against one process;
   * the projector; the trainer's four phase losses and gradients, one
     step of each phase (replicas bit-equal after it) and train_loop's
     resume under the mesh;
   * the detector, the live generator's feature statistics, the PR
-    distance tiles, psum_moments and check_replica_consistency.
+    distance tiles, psum_moments and check_replica_consistency; FID of the
+    live generator over 3 ranks, whose batch of 4 is padded to 6.
+
+A second group of 4 worker processes (started after the first has
+finished) runs `scenarios4`: the walk at batch 8 over 4 ranks, and the
+generator's FID over a mesh of 3 of them.
 
 Tolerances (ROADMAP section 3): walked w atol 1e-3, images rtol 1e-4,
 trainer losses rtol 1e-5 and gradients rtol 2e-3 / atol 2e-5 between the
@@ -26,7 +35,7 @@ tiles 1e-5. Against the JAX package the composed programs keep the
 tolerances of the files that hold the 1-process port to it (losses
 rtol 1e-4).
 
-Run as a worker: python tests/test_torch_port_parallel.py RANK PORT DIR
+Run as a worker: python tests/test_torch_port_parallel.py RANK PORT DIR [WORLD]
 """
 
 import os
@@ -161,17 +170,18 @@ def _walk_bundle(inp, key, arch="stylegan2"):
     return fns, bundle, G, D
 
 
-def _walk(inp, mesh, key, arch="stylegan2", c=None):
+def _walk(inp, mesh, key, arch="stylegan2", c=None, n=B):
+    """The walk of the first n rows of w0."""
     from latentaugment_tpu_torch.parallel import mesh as pmesh
 
     fns, bundle, G, D = _walk_bundle(inp, key, arch)
-    w0 = torch.from_numpy(inp["w03" if arch == "stylegan3" else "w0"])
-    c = None if c is None else torch.from_numpy(c)
+    w0 = torch.from_numpy(inp["w03" if arch == "stylegan3" else "w0"])[:n]
+    c = None if c is None else torch.from_numpy(c)[:n]
     gen = torch.Generator().manual_seed(5)
     if mesh is None:
         img, ws, traces = fns.walk(bundle, w0, (2, 4), gen, c)
     else:
-        rows = pmesh.shard_rows(B, mesh, D.cfg.mbstd_group_size)
+        rows = pmesh.shard_rows(n, mesh, D.cfg.mbstd_group_size)
         img, ws, traces = fns.walk(bundle, rows.take(w0), (2, 4), gen, rows.take(c), rows)
         img, ws = rows.gather(img), rows.gather(ws)
     return dict(img=img.numpy(), ws=ws.numpy(),
@@ -198,19 +208,32 @@ def _ganrand(inp, mesh, hybrid=False):
 
 def _mbstd(inp, mesh):
     """D over 16 images (4 groups of 4): the rows of shard_rows, and a
-    contiguous split for contrast."""
+    contiguous split for contrast; D over the first 4 (one group, split
+    over the ranks: D gathers its epilogue input), with the gradient at
+    its input."""
     from latentaugment_tpu_torch.parallel import mesh as pmesh
 
     _, _, _, D = _walk_bundle(inp, "sg2_0")
     x = torch.from_numpy(inp["d_batch"])
+    r4 = None if mesh is None else pmesh.shard_rows(4, mesh, D.cfg.mbstd_group_size)
+    take = (lambda t: t) if r4 is None else r4.take
+    x4 = take(x[:4]).requires_grad_(True)
+    y4 = D(x4, rows=r4)
+    dx4, = torch.autograd.grad((y4 * take(torch.arange(1.0, 5.0)[:, None])).sum(), x4)
+    out = dict(logits4=y4.detach(), dx4=dx4)
+    if r4 is not None:
+        out = dict(logits4=r4.gather(out["logits4"]), dx4=r4.gather(dx4),
+                   holds4=r4.holds_groups(D.cfg.mbstd_group_size))
+    out = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
     with torch.no_grad():
         if mesh is None:
-            return dict(logits=D(x).numpy())
+            return dict(out, logits=D(x).numpy())
         rows = pmesh.shard_rows(16, mesh, D.cfg.mbstd_group_size)
         r = pmesh.data_rank(mesh)
         contiguous = torch.cat(pmesh.all_gather(D(x[r * 8:(r + 1) * 8]), mesh))
-        return dict(logits=rows.gather(D(rows.take(x))).numpy(), local_rows=rows.index.numpy(),
-                    contiguous=contiguous.numpy())
+        return dict(out, logits=rows.gather(D(rows.take(x), rows=rows)).numpy(),
+                    local_rows=rows.index.numpy(), contiguous=contiguous.numpy(),
+                    holds=rows.holds_groups(D.cfg.mbstd_group_size))
 
 
 def _project(inp, mesh, noise):
@@ -303,6 +326,49 @@ def _phase_values(inp, mesh, kw, pl_noise):
                                      (aux if isinstance(aux, tuple) else (aux,))],
                       {n: g.numpy() for n, g in zip(names, grads)})
     return res
+
+
+def _r1_b4(inp, mesh):
+    """Dr1 (loss, penalty and every D gradient) at batch 4: one
+    minibatch-stddev group, split over the ranks."""
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+    fns, state = _train_fns(inp, mesh, **JAX_TRAIN)
+    real = torch.from_numpy(inp["train"]["real"][:4])
+    rows = None if mesh is None else pmesh.shard_rows(4, mesh, state.D.cfg.mbstd_group_size)
+    loss, penalty = fns.loss_d_r1(state.D, real if rows is None else rows.take(real), None,
+                                  rows)
+    grads = fns.grads(loss, state.D, rows)
+    loss, penalty = loss.detach(), penalty.detach()
+    if rows is not None:
+        loss, penalty = rows.sum(loss), rows.sum(penalty)
+    names = [n for n, _ in state.D.named_parameters()]
+    return dict(loss=float(loss), penalty=float(penalty),
+                grads={n: g.numpy() for n, g in zip(names, grads)})
+
+
+def _gen_fid(inp, mesh):
+    """FID of the live generator's samples (8 at batch_gen 4: padded to a
+    multiple of the ranks) against fixed real moments, on a 16-feature
+    probe detector (a fixed projection of the first modality's pixels),
+    which keeps the matrix root small."""
+    from latentaugment_tpu_torch.metrics import frechet_inception_distance as fid_t
+    from latentaugment_tpu_torch.metrics import metric_utils
+
+    proj = torch.from_numpy(np.random.RandomState(4).randn(3 * RES * RES, 16)
+                            .astype(np.float32) / RES)
+    metric_utils._feature_detector_cache[("fid-probe", "cpu")] = metric_utils._Detector(
+        lambda p, x: (x / 255.0).reshape(x.shape[0], -1) @ p, proj)
+    _, _, G, _ = _walk_bundle(inp, "sg2_0")
+    opts = metric_utils.MetricOptions(G=G, G_kwargs=dict(seed=5), device="cpu", mesh=mesh,
+                                      mode_dict=dict(mode_name="MR_nonrigid_CT", mode_idx=0))
+    stats = metric_utils.compute_feature_stats_for_generator(
+        opts, "https://x/fid-probe.pkl", capture_all=True, capture_mean_cov=True, max_items=8,
+        batch_gen=4)
+    mu, sigma = stats.get_mean_cov()
+    real = np.random.RandomState(6).randn(40, 16)
+    fid = fid_t.fid_from_moments(real.mean(0), np.cov(real, rowvar=False), mu, sigma)
+    return dict(fid=fid, feats=stats.get_all())
 
 
 def _train_steps(inp, mesh):
@@ -454,6 +520,9 @@ def scenarios(inp, mesh, tmp):
     out["walk_uncond"] = _walk(inp, mesh, "sg2_0")
     out["walk_cond"] = _walk(inp, mesh, "sg2_3", c=inp["c"])
     out["walk_sg3"] = _walk(inp, mesh, "sg3", arch="stylegan3")
+    out["walk_b4"] = _walk(inp, mesh, "sg2_0", n=4)
+    out["r1_b4"] = _r1_b4(inp, mesh)
+    out["gen_fid"] = _gen_fid(inp, mesh)
     out["ganrand"] = _ganrand(inp, mesh)
     out["ganrand_hybrid"] = _ganrand(inp, mesh, hybrid=True)
     out["mbstd"] = _mbstd(inp, mesh)
@@ -470,22 +539,45 @@ def scenarios(inp, mesh, tmp):
     return out
 
 
-def _worker(rank, port, tmp):
+WORLD4 = 4
+
+
+def scenarios4(inp, mesh):
+    """On a group of 4: the walk at batch 8 (2 rows a rank: D gathers),
+    and FID over a mesh of ranks 0-2 (rank 3 has no rows)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+    out = dict(walk_b8=_walk(inp, mesh, "sg2_0"),
+               rows_8=pmesh.shard_rows(8, mesh, 4).index.numpy())
+    try:
+        pmesh.shard_rows(6, mesh, 4)
+    except ValueError as e:
+        out["refused_6"] = str(e)
+    mesh3 = DeviceMesh("cpu", [0, 1, 2], mesh_dim_names=("data",))
+    if torch.distributed.get_rank() < 3:
+        out["gen_fid3"] = _gen_fid(inp, mesh3)
+    return out
+
+
+def _worker(rank, port, tmp, world=WORLD):
     torch.set_num_threads(1)
     from latentaugment_tpu_torch.parallel import mesh as pmesh
 
-    pmesh.init_distributed(f"localhost:{port}", WORLD, rank, backend="gloo")
-    mesh = pmesh.get_mesh(WORLD, devices="cpu")
+    pmesh.init_distributed(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = pmesh.get_mesh(world, devices="cpu")
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    out = scenarios(inp, mesh, tmp)
-    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+    out = scenarios(inp, mesh, tmp) if world == WORLD else scenarios4(inp, mesh)
+    with open(os.path.join(tmp, f"rank{rank}_of{world}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
 if __name__ == "__main__":
     sys.path[:0] = [REPO, HERE]
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+            int(sys.argv[4]) if len(sys.argv) > 4 else WORLD)
     sys.exit(0)
 
 # ----------------------------------------------------------------------------
@@ -518,10 +610,14 @@ def runs(tmp_path_factory):
     shutil.copytree(os.path.join(tmp, "single", "ws"), os.path.join(tmp, "mesh", "ws"))
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     env.update(PYTHONPATH=REPO + os.pathsep + HERE, OMP_NUM_THREADS="1")
-    port = pmesh.free_port()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(port), tmp],
-                              cwd=tmp, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+
+    def start_group(world):
+        port = pmesh.free_port()
+        return [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(port),
+                                  tmp, str(world)], cwd=tmp, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+    procs = start_group(WORLD)
 
     # The JAX side (mostly XLA compiles) in a thread beside the 1-process run.
     box = {}
@@ -542,6 +638,9 @@ def runs(tmp_path_factory):
             raise box["err"]
         jax_out = box["out"]
         logs = [p.communicate(timeout=600)[0] for p in procs]
+        # The group of 4, after the first has finished.
+        procs += start_group(WORLD4)
+        logs += [p.communicate(timeout=600)[0] for p in procs[WORLD:]]
         # The trainer's command line with --n_devices 2 and no process
         # group: it starts its two ranks itself (after the workers, so that
         # this fixture keeps few cores busy at a time).
@@ -557,11 +656,14 @@ def runs(tmp_path_factory):
                 p.kill()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"process {r} failed:\n{log[-6000:]}"
-    ranks = []
-    for r in range(WORLD):
-        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-            ranks.append(pickle.load(f))
-    return dict(inp=inp, single=single, mesh=ranks[0], ranks=ranks, jax=jax_out,
+    ranks = {}
+    for world in (WORLD, WORLD4):
+        ranks[world] = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}_of{world}.pkl"), "rb") as f:
+                ranks[world].append(pickle.load(f))
+    return dict(inp=inp, single=single, mesh=ranks[WORLD][0], ranks=ranks[WORLD],
+                ranks4=ranks[WORLD4], jax=jax_out,
                 cli_run=os.path.join(tmp, "cli_run"), cli_log=logs[-1])
 
 
@@ -704,6 +806,60 @@ def test_minibatch_stddev_groups_stay_whole_on_a_rank(runs):
     _close(mesh["logits"], single["logits"], 1e-5, 1e-6)
     err = np.abs(mesh["logits"] - single["logits"]).max()
     assert np.abs(mesh["contiguous"] - single["logits"]).max() > max(1e-4, 100 * err)
+
+
+@pytest.mark.parametrize("world,key", [(2, "walk_b4"), (4, "walk_b8")])
+def test_walk_matches_one_process_where_groups_span_ranks(runs, world, key):
+    """Batch 4 on 2 ranks and 8 on 4: no rank holds a whole
+    minibatch-stddev group of 4, so D gathers its epilogue input."""
+    mesh = (runs["mesh"] if world == 2 else runs["ranks4"][0])[key]
+    single = runs["single"]["walk_b4" if key == "walk_b4" else "walk_uncond"]
+    _close(mesh["ws"], single["ws"], 0, W_ATOL)
+    _close(mesh["img"], single["img"], IMG_RTOL, 1e-5)
+    for name, trace in single["traces"].items():
+        _close(mesh["traces"][name], trace, 1e-5, 1e-7)
+    others = runs["ranks"][1:] if world == 2 else runs["ranks4"][1:]
+    for other in others:
+        np.testing.assert_array_equal(other[key]["ws"], mesh["ws"])
+    moved = np.abs(mesh["ws"][:, :1] - runs["inp"]["w0"][:mesh["ws"].shape[0]]).mean()
+    assert moved > 5e-3, f"the walk barely moved w ({moved})"
+
+
+def test_shard_rows_asks_only_for_an_even_split(runs):
+    r0 = runs["ranks4"][0]
+    np.testing.assert_array_equal(r0["rows_8"], [0, 1])  # contiguous: 8 rows, 4 ranks
+    assert "does not split over 4 ranks" in r0["refused_6"]
+    assert not runs["mesh"]["mbstd"]["holds4"] and runs["mesh"]["mbstd"]["holds"]
+
+
+def test_minibatch_stddev_gathers_where_groups_span_ranks(runs):
+    mesh, single = runs["mesh"]["mbstd"], runs["single"]["mbstd"]
+    _close(mesh["logits4"], single["logits4"], 1e-5, 1e-6)
+    _close(mesh["dx4"], single["dx4"], 1e-5, 1e-7)
+    assert np.abs(single["dx4"]).max() > 0
+
+
+def test_dr1_step_matches_one_process_where_groups_span_ranks(runs):
+    """R1 at 2 ranks x batch 4 differentiates through D's gather twice."""
+    mesh, single = runs["mesh"]["r1_b4"], runs["single"]["r1_b4"]
+    _close(mesh["loss"], single["loss"], LOSS_RTOL)
+    _close(mesh["penalty"], single["penalty"], LOSS_RTOL)
+    for name, g in single["grads"].items():
+        _close(mesh["grads"][name], g, GRAD_RTOL, GRAD_ATOL)
+    assert max(np.abs(g).max() for g in single["grads"].values()) > 0
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_generator_fid_at_any_rank_count_matches_one_process(runs, world):
+    """batch_gen 4 over 3 ranks is padded to 6, the padded rows dropped."""
+    single = runs["single"]["gen_fid"]
+    ranks = runs["ranks"] if world == 2 else runs["ranks4"][:3]
+    key = "gen_fid" if world == 2 else "gen_fid3"
+    assert "gen_fid3" not in runs["ranks4"][3]
+    for r in ranks:
+        assert r[key]["feats"].shape == single["feats"].shape == (8, 16)
+        _close(r[key]["feats"], single["feats"], FEAT_RTOL, 1e-6)
+        _close(r[key]["fid"], single["fid"], 1e-5)
 
 
 def test_projector_matches_one_process_and_jax(runs):

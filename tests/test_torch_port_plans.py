@@ -177,22 +177,73 @@ def _sg3r_plan(res):
 
 @pytest.mark.parametrize("res", [256, 1024])
 def test_k2_plan_takes_every_sg3r_filter_at_run_time(res):
-    """Every FIR of StyleGAN3-R's decomposed layers (2-D fd of
-    filter_size * down_factor taps per axis, the 1-D fu of
-    filter_size * up_factor) and its backward plan K2 `generic`, whose
-    launcher takes more than 4 taps per axis at run time; 65 raise."""
+    """Every FIR of StyleGAN3-R's decomposed layers and its backward has a
+    K2 plan: the 2-D fd (filter_size * down_factor taps per axis) K2
+    `generic`, whose launcher takes more than 4 taps per axis at run
+    time, and the 1-D fu (filter_size * up_factor: 12 at up 2, 24 at up
+    4) and its backward at down 2 / 4 `sepn`; 65 taps raise."""
     radial = [layer for layer in _sg3r_plan(res) if layer.down_radial]
     assert radial and all(layer.down_taps == 6 * layer.down_factor == 12 for layer in radial)
+    assert {layer.up_factor for layer in radial} == {2, 4}
     for layer in radial:
         fu, fd = net3._layer_filters(layer)
         assert fd.shape == (layer.down_taps, layer.down_taps) and fu.ndim == 1
         u, d = layer.up_factor, layer.down_factor
-        for f_shape, rates in ((fd.shape, ((1, 1), (d, d))), (fu.shape, ((u, u), (1, 1)))):
-            want = dict(variant="generic")
-            assert up._plan(f_shape, *rates, (64, 64)) == want
-            assert up._plan(f_shape, *rates[::-1], (64, 64)) == want  # the backward
+        assert fu.shape == (6 * u,)
+        rates = ((1, 1), (d, d))
+        assert up._plan(fd.shape, *rates, (64, 64)) == dict(variant="generic")
+        assert up._plan(fd.shape, *rates[::-1], (64, 64)) == dict(variant="generic")
+        rates = ((u, u), (1, 1))
+        assert up._plan(fu.shape, *rates, (64, 64))["variant"] == "sepn"
+        assert up._plan(fu.shape, *rates[::-1], (64, 64))["variant"] == "sepn"  # the backward
     with pytest.raises(NotImplementedError, match="65x65"):
         up._plan((65, 65), (1, 1), (2, 2), (8, 8))
+
+
+# (up, down, taps) of `sepn`, with the R plan's largest map of each at
+# 256x256: (rows, columns) of the output and the tile the plan picks.
+SEPN_ROWS = {
+    "fu up 2, 12 taps (L11)": (2, 1, 12, (562, 562), (64, 128)),
+    "fu up 4, 24 taps (L10)": (4, 1, 24, (562, 562), (64, 128)),
+    "its backward, down 2": (1, 2, 12, (276, 276), (32, 64)),
+    "its backward, down 4": (1, 4, 24, (148, 148), (16, 32)),
+}
+
+
+@pytest.mark.parametrize("name", list(SEPN_ROWS))
+def test_k2_sepn_plan_of_the_r_plan_sizes(name):
+    """Each (up, down, taps) row plans `sepn` with its tile: rows a
+    multiple of the H pass's item (8 up, 2 or 1 down) and of up, columns
+    of 8, and at most ~112 KB of shared memory (two blocks an SM); a
+    small map takes a tile cut to its size."""
+    u, d, taps, out_hw, tile = SEPN_ROWS[name]
+    plan = up._plan((taps,), (u, u), (d, d), out_hw)
+    assert plan["variant"] == "sepn" and plan["taps"] == taps
+    assert (plan["toh"], plan["tow"]) == tile
+    assert plan["toh"] % up._sepn_rows_per_item(u, d) == 0 and plan["toh"] % u == 0
+    assert plan["tow"] % 8 == 0
+    assert plan["smem"] == up._sepn_smem_bytes(u, d, taps, *tile) <= 112 * 1024
+    small = up._plan((taps,), (u, u), (d, d), (5, 9))
+    assert (small["toh"], small["tow"]) == (up._round_up(5, up._sepn_rows_per_item(u, d)), 16)
+    assert small["smem"] == up._sepn_smem_bytes(u, d, taps, small["toh"], small["tow"])
+
+
+def test_k2_sepn_smem_of_the_down_4_tile():
+    """The backward at down 4 with 24 taps is the tight one: 16x32 outputs
+    stage 84x148 inputs, and the W pass keeps 84x32; each row pitch is
+    padded (2 mod 4 floats staged, 4 more than the tile after W)."""
+    assert up._sepn_smem_bytes(1, 4, 24, 16, 32) == 4 * (84 * 150 + 84 * 36)
+    assert up._sepn_smem_bytes(4, 1, 24, 64, 128) == 4 * (22 * 38 + 22 * 132)
+    assert up._sepn_smem_bytes(2, 1, 12, 64, 128) == 4 * (38 * 70 + 38 * 132)
+
+
+@pytest.mark.parametrize("f_shape, u, d", [((12,), 4, 1), ((24,), 2, 1), ((12,), 1, 4),
+                                            ((12,), 2, 2), ((12, 12), 2, 1), ((8,), 2, 1)])
+def test_k2_other_long_filters_stay_generic(f_shape, u, d):
+    """Only the four rows of `sepn`: another tap count, a rate pair or a
+    2-D filter plans `generic`, as does a rate that differs by axis."""
+    assert up._plan(f_shape, (u, u), (d, d), (64, 64)) == dict(variant="generic")
+    assert up._plan((12,), (2, 1), (1, 1), (64, 64)) == dict(variant="generic")
 
 
 def test_2d_filter_picks_the_decomposed_route():
