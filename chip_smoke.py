@@ -100,19 +100,22 @@ line.
      (image and gradient at ws); the policy walk over an SG3-R checkpoint
      for 3 batches at the largest of SG3R_BATCHES that fits without
      remat, the decomposed filtered_lrelu (K1 and K2) launched, K2 `sepn`
-     (the 1-D up filters and their backwards) and `generic` (the radial
-     down filter) each 12 x 21 times a batch, K3 on the critically
-     sampled layers; one engine walk at that batch under torch.profiler,
-     its device time by kind, K2 by variant; then K2 at the R plan's
-     largest layers at the walk's batch, forward and backward against the
-     plain version in float32 and bfloat16: `generic` on L10's radial
-     12x12 filter at down 2, `sepn` on L10's 24-tap filter at up 4 and
-     L11's 12-tap filter at up 2 (float32 values only: three 10 GB
-     tensors and the plain graph leave no room for timing), with bounds,
-     the one PyTorch call that computes the same (the depthwise F.conv2d
-     for the 2-D filter, the depthwise F.conv_transpose2d at stride s with
-     the outer product, cropped, for the 1-D ones) and, for the 1-D ones,
-     `generic` timed on the same inputs (the kernel they ran on before).
+     (the 1-D up filters and their backwards) and `f2d` (the radial down
+     filter and its backward) each 12 x 21 times a batch and `generic`
+     never, K3 on the critically sampled layers; one engine walk at that
+     batch under torch.profiler, its device time by kind, K2 by variant;
+     then K2 at the R plan's largest layers at the walk's batch, forward
+     and backward against the plain version in float32 and bfloat16:
+     `f2d` on L10's and L11's radial 12x12 filter at down 2 (its backward
+     at up 2; L11 in float32 values only), `sepn` on L10's 24-tap filter
+     at up 4 and L11's 12-tap filter at up 2 (float32 values only: three
+     10 GB tensors and the plain graph leave no room for timing), with
+     bounds, the one PyTorch call that computes the same (the depthwise
+     F.conv2d for the 2-D filter, the depthwise F.conv_transpose2d at
+     stride s with the outer product, cropped, for the 1-D ones) and
+     `generic` launched directly on the same inputs (the kernel they ran
+     on before), held to the plain version forward and backward and
+     timed; the kernels line keeps its entry, with 0 launches.
  12. The sweep drivers (scripts/torch_backbone_{latentaug,sg2aug,geoaug}.py)
      on phase 3's workspace, 3 batches after the sanity check's: the
      LatentAugment sweep's dumps complete and its launches per batch equal
@@ -177,8 +180,9 @@ line.
 
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
-No launch of phases 5, 6, 8, 9, 12 and 13 may go through a kernel's
-`generic` variant; phase 11 must launch K2's `generic` and `sepn`. The last two lines of stdout are the kernels' JSON record and
+No launch of any phase's main path may go through a kernel's `generic`
+variant; phase 11 must launch K2's `sepn` and `f2d`. The last two lines
+of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -655,7 +659,7 @@ def phase_small_reference(torch, benchmark, arch="stylegan2"):
 
 def k2_generic(torch, up, x, f, rate_up, rate_down, padding, flip, gain):
     """K2's `generic` kernel (run-time taps) launched directly on one case,
-    as the port routed StyleGAN3-R's 1-D filters before `sepn`: the
+    as the port routed StyleGAN3-R's filters before `sepn` and `f2d`: the
     "before" column. Not a path of the port, and not counted."""
     n, c, out_h, out_w = up._output_shape(x, f, (rate_up,) * 2, (rate_down,) * 2, padding)
     y = torch.empty([n, c, out_h, out_w], dtype=x.dtype, device=x.device)
@@ -699,17 +703,19 @@ def phase_sg3r_kernels(torch, up, layers, batch, dev):
     """K2 at the R plan's largest decomposed layers at the walk's batch,
     forward and backward against the plain version (float32 and bfloat16),
     with bounds and the one PyTorch call that computes the same: the radial
-    12x12 down filter at L10 through `generic` (the depthwise F.conv2d),
-    the 1-D up filters through `sepn`: 24 taps at up 4 (L10) and 12 at up
-    2 (L11), their backwards at down 4 and 2 (the depthwise
-    F.conv_transpose2d with the outer product, cropped). The 1-D cases
-    also time `generic` on the same inputs, the kernel the port ran for
-    them before `sepn`. `layers` maps a layer name to (layer, fu, fd)."""
+    12x12 down filter at L10 and L11 through `f2d`, its backward at up 2
+    (the depthwise F.conv2d), the 1-D up filters through `sepn`: 24 taps
+    at up 4 (L10) and 12 at up 2 (L11), their backwards at down 4 and 2
+    (the depthwise F.conv_transpose2d with the outer product, cropped).
+    Every timed case also holds `generic` (the kernel the port ran for
+    them before) on the same inputs to the plain version, forward and
+    backward, and times it. `layers` maps a layer name to (layer, fu,
+    fd)."""
     bf16, f32 = torch.bfloat16, torch.float32
     names = {f32: "float32", bf16: "bfloat16"}
     g = torch.Generator(device=dev).manual_seed(11)
     cases = []
-    for lname, which in (("L10", "fd"), ("L10", "fu"), ("L11", "fu")):
+    for lname, which in (("L10", "fd"), ("L11", "fd"), ("L10", "fu"), ("L11", "fu")):
         layer, fu, fd = layers[lname]
         lo, hi = layer.padding
         pad = (lo, hi, lo, hi)
@@ -718,7 +724,7 @@ def phase_sg3r_kernels(torch, up, layers, batch, dev):
             mid = (n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1))
             cases.append((f"{lname} radial fd {fd.shape[0]}x{fd.shape[1]} down "
                           f"{layer.down_factor}", [batch, c, mid, mid], fd,
-                          dict(down=layer.down_factor), "generic"))
+                          dict(down=layer.down_factor), "f2d"))
         else:
             cases.append((f"{lname} fu {fu.shape[0]} taps up {layer.up_factor}",
                           [batch, c, n_in, n_in], fu,
@@ -734,9 +740,10 @@ def phase_sg3r_kernels(torch, up, layers, batch, dev):
             def fn(x, impl, f=f, kw=kw):
                 return up.upfirdn2d(x, f, impl=impl, **kw)
 
-            if f.ndim == 1 and dtype == f32:
+            if dtype == f32 and (f.ndim == 1 or name.startswith("L11")):
                 # The plain version's graph and three 10 GB tensors do not
-                # fit beside a timed run: values only.
+                # fit beside a timed run: values only (L11's radial filter
+                # too, to hold the phase's time).
                 rec = check_only(torch, name, fn, x, 300 + len(recs), names[dtype], recs)
             else:
                 if f.ndim == 2:
@@ -770,24 +777,34 @@ def phase_sg3r_kernels(torch, up, layers, batch, dev):
                 rec = compare(name, fn, x, 300 + len(recs), names[dtype], recs,
                               ((wf["bytes"], wf["macs"]), (wb["bytes"], wb["macs"])), library,
                               tol_bwd=TOL)
-                if f.ndim == 1:
-                    # `generic` on the same inputs: the before column.
-                    padding = up._parse_padding(wkw["padding"])
-                    gen_args = (f, wkw["up"], wkw["down"], padding, False, float(kw["gain"]))
-                    with torch.no_grad():
-                        y_s = fn(x, "auto")
-                        y_g = k2_generic(torch, up, x, *gen_args)
-                        check_close(rec, "generic", y_g, y_s, TOL[names[dtype]])
-                        dy = torch.randn_like(y_s)
-                        del y_s, y_g
-                        gb_args = (f, wkw["down"], wkw["up"], bpad, True, float(kw["gain"]))
-                        rec["generic_fwd_ms"] = median_ms(
-                            lambda: k2_generic(torch, up, x, *gen_args))
-                        rec["generic_bwd_ms"] = median_ms(
-                            lambda: k2_generic(torch, up, dy, *gb_args))
-                    del dy
-                    log(f"    before (K2 generic, same inputs): fwd {rec['generic_fwd_ms']:.3f} "
-                        f"ms, bwd {rec['generic_bwd_ms']:.3f} ms")
+                # `generic` on the same inputs, forward and backward (up and
+                # down swapped, the filter flipped), held to the plain
+                # version: the before column.
+                padding = up._parse_padding(wkw["padding"])
+                gain = float(kw.get("gain", 1))
+                gen_args = (f, wkw["up"], wkw["down"], padding, False, gain)
+                gb_args = (f, wkw["down"], wkw["up"], bpad, True, gain)
+                with torch.no_grad():
+                    y_p = fn(x, "ref")
+                    check_close(rec, "generic", k2_generic(torch, up, x, *gen_args), y_p,
+                                TOL[names[dtype]])
+                    dy = torch.randn_like(y_p)
+                    del y_p
+                xg = x.detach().requires_grad_(True)
+                dx_p, = torch.autograd.grad(fn(xg, "ref"), xg, dy)
+                del xg
+                with torch.no_grad():
+                    check_close(rec, "generic_bwd", k2_generic(torch, up, dy, *gb_args), dx_p,
+                                TOL[names[dtype]])
+                    del dx_p
+                    rec["generic_fwd_ms"] = median_ms(
+                        lambda: k2_generic(torch, up, x, *gen_args))
+                    rec["generic_bwd_ms"] = median_ms(
+                        lambda: k2_generic(torch, up, dy, *gb_args))
+                del dy
+                log(f"    before (K2 generic, same inputs): fwd err {rec['generic_rel_err']:.2e} "
+                    f"bwd err {rec['generic_bwd_rel_err']:.2e} | fwd {rec['generic_fwd_ms']:.3f} "
+                    f"ms, bwd {rec['generic_bwd_ms']:.3f} ms")
             used = {k for k in before if up.variant_launches[k] != before[k]}
             if used != {variant}:
                 raise AssertionError(f"{name}: launched variants {used}, expected {variant}")
@@ -801,9 +818,10 @@ def phase_sg3r_kernels(torch, up, layers, batch, dev):
 
 
 def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
-    """StyleGAN3-R on the card: K2 `generic` at run-time taps, the R
-    generator at 256x256 with the kernels against the plain versions, and
-    the policy walk at the largest batch that fits without remat."""
+    """StyleGAN3-R on the card: K2 `sepn` and `f2d` on the decomposed
+    layers, the R generator at 256x256 with the kernels against the plain
+    versions, and the policy walk at the largest batch that fits without
+    remat."""
     log("phase 11: StyleGAN3-R (radial filters) on the card")
     g_cfg, _ = benchmark.make_gd_configs(RES, 2, num_fp16_res=0, arch="stylegan3",
                                          **WIDTHS, **benchmark.SG3R)
@@ -829,8 +847,7 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
         img = G.synthesis(ws)
         grad, = torch.autograd.grad((img * r).sum(), ws)
         torch.cuda.synchronize()
-        out[impl] = (img.detach(), grad, read_counters(counters, f"SG3-R G ({impl})", [],
-                                                        generic_ok=("upfirdn2d",)),
+        out[impl] = (img.detach(), grad, read_counters(counters, f"SG3-R G ({impl})", []),
                      dict(fl.decomposed_calls))
     (img_k, grad_k, (launches_k, variants_k), dec_k), (img_r, grad_r, (launches_r, _), _) = \
         out["auto"], out["ref"]
@@ -840,9 +857,9 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
               "filtered_lrelu_bwd"):
         if launches_k[k] <= 0:
             raise AssertionError(f"SG3-R G: kernel {k} was not launched: {launches_k}")
-    if (variants_k["upfirdn2d"]["generic"] <= 0 or variants_k["upfirdn2d"]["sepn"] <= 0
+    if (variants_k["upfirdn2d"]["f2d"] <= 0 or variants_k["upfirdn2d"]["sepn"] <= 0
             or dec_k["filtered_lrelu_decomposed"] <= 0):
-        raise AssertionError(f"SG3-R G: no decomposed layer ran through K2 generic and sepn: "
+        raise AssertionError(f"SG3-R G: no decomposed layer ran through K2 f2d and sepn: "
                              f"{variants_k}, {dec_k}")
     g_rec = dict(batch=SG3R_G_BATCH, launches=launches_k, variant_launches=variants_k,
                  decomposed_calls=dec_k,
@@ -876,16 +893,16 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     batch, argv, (batches, launches, setup_s, peak), dec = walk
     check_batches(torch, np, batches, batch, "SG3-R")
     launches, variants = read_counters(counters, "SG3-R walk",
-                                       [k for k in launches if k != "bias_act_bwd2"],
-                                       generic_ok=("upfirdn2d",))
+                                       [k for k in launches if k != "bias_act_bwd2"])
     # Per batch, each of the decomposed layers' two FIRs runs in 11
     # syntheses (10 Adam steps and the final one) and 10 backwards: the
-    # 1-D up filter through `sepn`, the radial down filter through `generic`.
+    # 1-D up filter through `sepn`, the radial down filter through `f2d`
+    # (read_counters holds `generic` at 0).
     want = len(radial) * (2 * 10 + 1) * N_BATCHES
     k2 = variants["upfirdn2d"]
-    if k2["sepn"] != want or k2["generic"] != want or dec["filtered_lrelu_decomposed"] <= 0:
+    if k2["sepn"] != want or k2["f2d"] != want or dec["filtered_lrelu_decomposed"] <= 0:
         raise AssertionError(f"SG3-R walk: K2 launches by variant {k2} over {N_BATCHES} "
-                             f"batches, expected {want} sepn and {want} generic; {dec}")
+                             f"batches, expected {want} sepn and {want} f2d; {dec}")
     sps = samples_per_s(batches, batch)
     walk_rec = dict(batch=batch, launches=launches, variant_launches=variants,
                     decomposed_calls=dec, samples_per_s=sps, peak_mem_bytes=peak,
@@ -1079,17 +1096,16 @@ def reset_counters(counters):
         c.update(dict.fromkeys(c, 0))
 
 
-def read_counters(counters, label, need, generic_ok=()):
+def read_counters(counters, label, need):
     """(launches by kernel, by variant) since reset_counters. Every kernel
-    named in `need` must have been launched, none through `generic` but
-    those named in `generic_ok` (StyleGAN3-R's 2-D filters run K2 there)."""
+    named in `need` must have been launched, none through `generic`."""
     launches = {k: v for c in counters for k, v in c.items()}
     variants = {name: dict(c) for name, c in VARIANT_COUNTERS.items()}
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {label} path")
     for name, c in variants.items():
-        if c["generic"] != 0 and name not in generic_ok:
+        if c["generic"] != 0:
             raise AssertionError(f"{label}: {c['generic']} launches of {name} went through its "
                                  f"generic variant: {c}")
     return launches, variants
@@ -3140,7 +3156,8 @@ def main():
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
     fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
-    r_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "generic"]
+    r_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "f2d"]
+    g_recs = [r for r in sg3r_rec["kernels"] if "generic_max_abs_err" in r]
     r_main = next(r for r in r_recs if "radial" in r["case"] and r["dtype"] == "bfloat16")
     n_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "sepn"]
     n_main = next(r for r in n_recs if "up 4" in r["case"] and r["dtype"] == "bfloat16")
@@ -3174,16 +3191,32 @@ def main():
               sg3_rec["launches"]["filtered_lrelu_fwd"], fl_recs, fl_main, "fwd", "u4t24_d2t12"),
         entry("filtered_lrelu_bwd", "cuda", fl_src, fl_tpu,
               sg3_rec["launches"]["filtered_lrelu_bwd"], fl_recs, fl_main, "bwd", "u2t12_d4t24"),
-        # K2's generic variant with run-time taps, StyleGAN3-R's radial
-        # filters: launches are the SG3-R walk's generic ones.
-        dict(entry("upfirdn2d_generic", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
+        # K2's staged 2-D polyphase variant, StyleGAN3-R's radial filter
+        # and its backward: launches are the SG3-R walk's f2d ones.
+        dict(entry("upfirdn2d_f2d", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
                    "latentaugment_tpu/ops/upfirdn2d.py:564",
-                   sg3r_rec["walk"]["variant_launches"]["upfirdn2d"]["generic"], r_recs, r_main,
-                   "fwd+bwd", "generic"),
-             case="generic 2-D (run-time taps): " + r_main["case"],
+                   sg3r_rec["walk"]["variant_launches"]["upfirdn2d"]["f2d"], r_recs, r_main,
+                   "fwd+bwd", "f2d"),
+             case="f2d 2-D: " + r_main["case"],
              launches_by_path={"walk_stylegan3r": sg3r_rec["walk"]["variant_launches"]
-                               ["upfirdn2d"]["generic"]},
+                               ["upfirdn2d"]["f2d"]},
              decomposed_calls=sg3r_rec["walk"]["decomposed_calls"]),
+        # K2's generic variant with run-time taps, launched directly on the
+        # same case (the kernel the radial filter ran on before `f2d`) and
+        # held to the plain version forward and backward; no path launches
+        # it (read_counters holds it at 0), so its launches are 0.
+        {"name": "upfirdn2d_generic", "route": "cuda",
+         "source": "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
+         "replaces": "latentaugment_tpu/ops/upfirdn2d.py:564",
+         "launches": sg3r_rec["walk"]["variant_launches"]["upfirdn2d"]["generic"],
+         "variant": "generic", "case": "generic 2-D (run-time taps), direct: " + r_main["case"],
+         "launches_by_path": {"walk_stylegan3r": sg3r_rec["walk"]["variant_launches"]
+                              ["upfirdn2d"]["generic"]},
+         "max_abs_err": max(r[f"{k}_max_abs_err"] for r in g_recs
+                            for k in ("generic", "generic_bwd")),
+         "ms": r_main["generic_fwd_ms"], "bwd_ms": r_main["generic_bwd_ms"],
+         "plain_ms": r_main["plain_fwd_ms"], "bound_ms": r_main["bound_fwd_ms"],
+         "bound_by": r_main["bound_fwd_by"], "library_ms": r_main["library_fwd_ms"]},
         # K2's staged polyphase variant, StyleGAN3-R's 1-D filters: launches
         # are the SG3-R walk's sepn ones; `generic` on the same case before.
         dict(entry("upfirdn2d_sepn", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",

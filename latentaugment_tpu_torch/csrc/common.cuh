@@ -57,13 +57,15 @@ __device__ __forceinline__ uint8_t stage_load(const uint8_t* p, float) { return 
 // Stage a [rows][cols] window of the [src_h][src_w] image `src`, whose
 // corner is image position (y0, x0), into shared memory at `dst` with row
 // pitch `pitch`: `add` is added to what lies inside the image, positions
-// outside it and columns from `live_cols` on are 0. A warp takes U rows
+// outside it and columns from `live_cols` on are 0. With GAP > 0, column
+// c of a row lies at c + GAP * (c / 32) (gaps that spread a warp's strided
+// reads over the banks; see upfirdn2d.cu's `f2d`). A warp takes U rows
 // and J spans of 32 columns at a time, its lanes along the columns
 // (coalesced), and issues all U * J loads before it stores any: one load
 // at a time would leave the block waiting out the device memory's
 // latency once per element. With U * warps >= rows and 32 * J >= cols
 // the whole window is one round.
-template <int U, int J, typename S, typename D>
+template <int U, int J, int GAP = 0, typename S, typename D>
 __device__ __forceinline__ void stage_window(const S* __restrict__ src, int src_h, int src_w,
                                              int y0, int x0, D* __restrict__ dst, int rows,
                                              int cols, int live_cols, int pitch, float add,
@@ -90,7 +92,7 @@ __device__ __forceinline__ void stage_window(const S* __restrict__ src, int src_
 #pragma unroll
                 for (int j = 0; j < J; ++j) {
                     const int c = c0 + 32 * j;
-                    if (r < rows && c < cols) dst[r * pitch + c] = v[u][j];
+                    if (r < rows && c < cols) dst[r * pitch + c + GAP * (c >> 5)] = v[u][j];
                 }
             }
         }

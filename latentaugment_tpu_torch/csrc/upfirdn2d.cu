@@ -18,7 +18,7 @@
 // radial 12x12 down filter is the exception: 144 multiply-adds per
 // output at down 2 put it over the fp32 line, so operations bound it.
 //
-// Three kernels, chosen by the plan in ops/upfirdn2d.py (the launchers
+// Four kernels, chosen by the plan in ops/upfirdn2d.py (the launchers
 // refuse a plan that does not fit them):
 //
 //  * `upfirdn2d_kernel_sep4<UP, DOWN, T>` for the separable 4-tap filter
@@ -46,17 +46,25 @@
 //    same staging and two 1-D passes as `sep4`, with polyphase tables of
 //    T / UP + 1 taps per phase, and stores of two elements a lane on every
 //    even output width (its note below says more).
-//  * `upfirdn2d_kernel<MAXT, T>`, the generic kernel, for 2-D filters,
-//    other rates and other tap counts: one thread per output pixel, the
-//    zero insertion folded into the indexing (a tap touches canvas row u
-//    only when (u - pad0) % up == 0, so the loops start at the first such
-//    tap and step by `up`), taps in shared memory. Two instantiations:
+//  * `upfirdn2d_kernel_f2d<UP, DOWN, SY, SX, T>` for the 2-D 12x12 filter
+//    at down 2 and at up 2: StyleGAN3-R's radial down filter on the
+//    decomposed filtered_lrelu, and its backward. The same staging, a
+//    register block of outputs per thread, the 144 taps (down 2) or the
+//    four 2-D polyphase tables (up 2) as kernel parameters (its note
+//    below says more).
+//  * `upfirdn2d_kernel<MAXT, T>`, the generic kernel, for other 2-D
+//    filters, other rates and other tap counts: one thread per output
+//    pixel, the zero insertion folded into the indexing (a tap touches
+//    canvas row u only when (u - pad0) % up == 0, so the loops start at
+//    the first such tap and step by `up`), taps in shared memory. Two
+//    instantiations:
 //    MAXT = 4 (at most 4 taps per axis, both tap loops unrolled) and
 //    MAXT = 0, whose tap count is a run-time parameter (at most
 //    UPFIRDN2D_MAX_DYN_TAPS per axis; fw * fh floats of dynamic shared
 //    memory, read from device memory once per block, loops over the live
-//    taps only). The second takes StyleGAN3-R's radial 12x12 down filter
-//    on the decomposed filtered_lrelu, and its backward.
+//    taps only). No path on the card launches it since `f2d` took the
+//    radial filter; it stays for the filters and rates that no staged
+//    variant takes.
 //
 // C interface for ctypes; each launcher returns the CUDA error of the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
@@ -386,7 +394,9 @@ struct SepnWindow {
         }
     }
 
-    // Into dst[r][c] (row pitch `pitch`, `cols` columns) with c = 2q - shift.
+    // Into dst[r][c] (row pitch `pitch`, `cols` columns) with c = 2q - shift;
+    // with GAP > 0 column c lies at c + GAP * (c / 32), as stage_window's.
+    template <int GAP = 0>
     __device__ __forceinline__ void store(float* __restrict__ dst, int pitch, int cols, int shift,
                                           int rows, int npairs, int tid) const {
         constexpr int NW = UPFIRDN2D_THREADS / 32;
@@ -401,8 +411,8 @@ struct SepnWindow {
                 const int q = lane + 32 * j, c = 2 * q - shift;
                 if (q < npairs) {
                     const float2 f = pair_f32(v[i][j]);
-                    if (c >= 0) drow[c] = f.x;
-                    if (c + 1 < cols) drow[c + 1] = f.y;
+                    if (c >= 0) drow[c + GAP * (c >> 5)] = f.x;
+                    if (c + 1 < cols) drow[c + 1 + GAP * ((c + 1) >> 5)] = f.y;
                 }
             }
         }
@@ -602,6 +612,309 @@ extern "C" int upfirdn2d_sepn_launch(const void* x, void* y, int dtype, long lon
     else if (variant == 1) err = launch_sepn<4, 1, 24>(dtype, x, y, p, need, s);
     else if (variant == 2) err = launch_sepn<1, 2, 12>(dtype, x, y, p, need, s);
     else err = launch_sepn<1, 4, 24>(dtype, x, y, p, need, s);
+    return (int)err;
+}
+
+// ----------------------------------------------------------------------------
+// The staged 2-D polyphase kernel for StyleGAN3-R's radial 12x12 filter.
+//
+// Replaces, for the radial down filter of StyleGAN3-R's decomposed layers
+// and its backward, the run-time-tap `generic` instantiation
+// (`upfirdn2d_kernel<0, T>` below) that ran them before. The JAX package
+// computes this filter outside Pallas (`_auto_wants_pallas` takes only 1-D
+// filters at up = down = 1, latentaugment_tpu/ops/upfirdn2d.py:120-134, so
+// it goes to `_upfirdn2d_xla`); the port's counterpart is K2, the kernel
+// that replaces `_upfirdn2d_pallas_call` (:492).
+//
+// What bounds it: operations. The forward (down 2) makes 144 multiply-adds
+// per output, the backward (up 2, the filter flipped, the padding
+// transposed) 36: 2.7 ms of fp32 FMA each for the walk's L10 at batch 16,
+// against 1.5 ms of bf16 bytes. `generic` spent 15-30x that bound on
+// instructions: one thread per output, every tap a bounds-tested scalar
+// load through L1 and a tap read from shared memory. Here a block stages
+// its input tile with its halo once, as f32 in shared memory (bounds tests,
+// padding and cropping only there), and a thread makes a register block of
+// outputs from a sliding window of float2 loads, with the taps as kernel
+// parameters (compile-time indices: each the constant operand of its FFMA;
+// no tap loads, no tap arithmetic).
+//  * Down 2: a thread makes 4 rows x 4 columns. Each of the 18 staged rows
+//    under them is loaded once (18 columns, 9 float2) and feeds every
+//    output row of the block whose 12 taps meet it: 2304 FFMAs a thread
+//    from 162 loads.
+//  * Up 2: the tile starts at an even output row and column, so an
+//    output's phase (ey, ex) is its local index mod 2, and each phase has
+//    6 x 6 live taps. The host builds the four phases' 7 x 7 tables from
+//    the flipped filter (`_taps.polyphase_table_2d`, the gain folded in);
+//    where a phase starts one input later (an even padding), the kernel is
+//    instantiated with that shift (SY, SX), so it reads only the 36 live
+//    entries. A thread makes 2 x 4 quads (4 rows x 8 columns) from an input
+//    window of 7-8 rows by 9-10 columns: 1152 FFMAs from 40 loads.
+// A warp's lanes take consecutive column blocks of one row block, 8 (down)
+// or 4 (up) staged floats apart; column c of a staged row lies at
+// c + 2 * (c / 32), so that the 16 lanes of a half-warp read their float2
+// from 32 different banks. The forward stores 4 elements a lane where the
+// output width is a multiple of 4 (every forward width of the R plan), the
+// backward bf16x2 / float2 pairs on every even width (every backward width
+// of the R plan); odd widths take a scalar tail. As in `sepn`, a block
+// takes 8 planes of its tile and, where the rows start at even elements,
+// loads the next plane's window into registers (element pairs) while it
+// filters this one. Tiles (rows x columns of outputs, at most) and shared
+// memory: down 2 64x64, 80.6 KB; up 2 64x128, 11.2 KB; a smaller map takes
+// a tile cut to its size, and a block's threads take the items that hold
+// outputs of the map, packed densely.
+
+#define UPFIRDN2D_F2D_TAPS 12     // per axis
+#define UPFIRDN2D_F2D_PHASE 7     // entries of an up-2 phase table per axis
+#define UPFIRDN2D_F2D_PARAMS 196  // up 2: [ey][ex][7][7]; down 2 uses 144
+#define UPFIRDN2D_F2D_DOWN_TOH 64
+#define UPFIRDN2D_F2D_DOWN_TOW 64
+#define UPFIRDN2D_F2D_UP_TOH 64
+#define UPFIRDN2D_F2D_UP_TOW 128
+
+struct Upfirdn2dF2dParams {
+    long long planes;  // N * C
+    int in_h, in_w, out_h, out_w;
+    int ox, oy;    // down 2: the low padding; up 2: the input index that table entry 0
+                   // meets at output 0
+    int toh, tow;  // output tile: toh % 4 == 0, tow % 4 (down) or % 8 (up) == 0
+    int pairs;     // in_w even and x aligned to 2 elements: stage element pairs, prefetched
+    // Down 2: [12][12] correlation taps. Up 2: [ey][ex][7][7] phase tables.
+    // The gain is folded in.
+    float t[UPFIRDN2D_F2D_PARAMS];
+};
+
+// Staged rows / columns under `n` outputs.
+__host__ __device__ constexpr int f2d_window(int up, int n) { return up == 1 ? 2 * n + 10 : n / 2 + 6; }
+// Where column c of a staged row lies.
+__host__ __device__ constexpr int f2d_col(int c) { return c + 2 * (c >> 5); }
+// The staged row pitch in floats: the widest tile's row with its gaps, even.
+__host__ __device__ constexpr int f2d_pitch(int up) {
+    return (f2d_col(f2d_window(up, up == 1 ? UPFIRDN2D_F2D_DOWN_TOW : UPFIRDN2D_F2D_UP_TOW) - 1) +
+            2) & ~1;
+}
+
+// Shared memory of the kernel in bytes; ops/upfirdn2d.py
+// (`_f2d_smem_bytes`) computes the same.
+static inline size_t f2d_smem_bytes(int up, int toh) {
+    return sizeof(float) * (size_t)f2d_window(up, toh) * f2d_pitch(up);
+}
+
+// Rows a warp and pair spans a lane may hold of the prefetched window: the
+// down-2 tile stages at most 138 rows of 70 pairs; in f32 (StyleGAN3-R's
+// 36x36 layers) windows of up to 88 rows of 64 pairs are prefetched, larger
+// ones staged without. The up-2 tile stages at most 38 rows of 36 pairs.
+#define UPFIRDN2D_F2D_DOWN_RW 18
+#define UPFIRDN2D_F2D_DOWN_JP 3
+#define UPFIRDN2D_F2D_DOWN_F32_RW 11
+#define UPFIRDN2D_F2D_DOWN_F32_JP 2
+#define UPFIRDN2D_F2D_UP_RW 5
+#define UPFIRDN2D_F2D_UP_JP 2
+
+template <int UP, int DOWN, int SY, int SX, typename Tp>
+__global__ void __launch_bounds__(UPFIRDN2D_THREADS, 2)
+upfirdn2d_kernel_f2d(const Tp* __restrict__ x, Tp* __restrict__ y, const Upfirdn2dF2dParams p) {
+    constexpr int NT = UPFIRDN2D_THREADS;
+    constexpr int T = UPFIRDN2D_F2D_TAPS;
+    constexpr int E = UPFIRDN2D_F2D_PHASE;
+    constexpr int IR = 4;                                           // output rows of an item
+    constexpr int IC = UP == 1 ? 4 : 8;                             // output columns of an item
+    constexpr int WR = UP == 1 ? 2 * IR + T - 2 : IR / 2 + 5 + SY;  // window rows
+    constexpr int WC = UP == 1 ? 2 * IC + T - 2 : IC / 2 + 5 + SX;  // window columns
+    constexpr int WCL = (WC + 1) & ~1;                              // loaded as float2
+    constexpr int SR = UP == 1 ? 2 * IR : IR / 2;                   // window start per item
+    constexpr int SC = UP == 1 ? 2 * IC : IC / 2;
+    constexpr int PX = f2d_pitch(UP);
+    constexpr bool F32 = sizeof(Tp) == 4;
+    constexpr int RW = UP == 2 ? UPFIRDN2D_F2D_UP_RW
+                               : (F32 ? UPFIRDN2D_F2D_DOWN_F32_RW : UPFIRDN2D_F2D_DOWN_RW);
+    constexpr int JP = UP == 2 ? UPFIRDN2D_F2D_UP_JP
+                               : (F32 ? UPFIRDN2D_F2D_DOWN_F32_JP : UPFIRDN2D_F2D_DOWN_JP);
+    static_assert((UP == 1 && DOWN == 2 && SY == 0 && SX == 0) || (UP == 2 && DOWN == 1),
+                  "f2d takes down 2 or up 2");
+    extern __shared__ float4 smem4[];
+    float* s_x = reinterpret_cast<float*>(smem4);  // [xh][PX]  input tile with halo
+
+    const int toh = p.toh, tow = p.tow;
+    const int xh = f2d_window(UP, toh), xw = f2d_window(UP, tow);
+    const int tid = threadIdx.x;
+    const int ox0 = blockIdx.x * tow, oy0 = blockIdx.y * toh;
+    const int ix0 = UP == 1 ? ox0 * 2 - p.ox : ox0 / 2 + p.ox;
+    const int iy0 = UP == 1 ? oy0 * 2 - p.oy : oy0 / 2 + p.oy;
+    const long long in_plane = (long long)p.in_h * p.in_w;
+    const long long out_plane = (long long)p.out_h * p.out_w;
+    // Items (IR x IC outputs) that hold outputs of the map, packed densely.
+    const int live_w = p.out_w - ox0 < tow ? p.out_w - ox0 : tow;
+    const int live_h = p.out_h - oy0 < toh ? p.out_h - oy0 : toh;
+    const int nic = (live_w + IC - 1) / IC, nitems = nic * ((live_h + IR - 1) / IR);
+    const bool vec4 = UP == 1 && (p.out_w % 4) == 0;
+    const bool pairs = (p.out_w % 2) == 0;
+    // The prefetched window: xw columns from the even column at or before ix0.
+    const int shift = pos_mod(ix0, 2), npairs = (xw + shift + 1) / 2;
+    const bool prefetch = p.pairs && xh <= RW * (NT / 32) && npairs <= 32 * JP;
+    SepnWindow<RW, JP, Tp> win;
+    if (prefetch && blockIdx.z < p.planes)
+        win.load(x + blockIdx.z * in_plane, p.in_h, p.in_w, iy0, ix0 - shift, xh, npairs, tid);
+
+    for (long long plane = blockIdx.z; plane < p.planes; plane += gridDim.z) {
+        __syncthreads();  // the previous plane is done with shared memory
+
+        // Stage the input tile; zeros outside the image. With prefetch the
+        // window is in registers: store it, then load the next plane's.
+        if (prefetch) {
+            win.template store<2>(s_x, PX, xw, shift, xh, npairs, tid);
+            __syncthreads();
+            if (plane + gridDim.z < p.planes)
+                win.load(x + (plane + gridDim.z) * in_plane, p.in_h, p.in_w, iy0, ix0 - shift,
+                         xh, npairs, tid);
+        } else {
+            stage_window<4, 2, 2>(x + plane * in_plane, p.in_h, p.in_w, iy0, ix0, s_x, xh, xw, xw,
+                                  PX, 0.f, tid, NT);
+            __syncthreads();
+        }
+
+        Tp* yp = y + plane * out_plane;
+        for (int it = tid; it < nitems; it += NT) {
+            const int rb = it / nic, cb = it - rb * nic;
+            const float* src = s_x + rb * SR * PX;
+            int off[WCL / 2];
+#pragma unroll
+            for (int k = 0; k < WCL / 2; ++k) off[k] = f2d_col(cb * SC + 2 * k);
+            float acc[IR][IC];
+#pragma unroll
+            for (int j = 0; j < IR; ++j)
+#pragma unroll
+                for (int c = 0; c < IC; ++c) acc[j][c] = 0.f;
+#pragma unroll
+            for (int r = 0; r < WR; ++r) {
+                float w[WCL];
+#pragma unroll
+                for (int k = 0; k < WCL / 2; ++k) {
+                    const float2 v = *reinterpret_cast<const float2*>(src + r * PX + off[k]);
+                    w[2 * k] = v.x;
+                    w[2 * k + 1] = v.y;
+                }
+                if constexpr (UP == 1) {
+                    // Output row j meets staged row r at tap row r - 2j.
+#pragma unroll
+                    for (int j = 0; j < IR; ++j) {
+                        const int a = r - 2 * j;
+                        if (a >= 0 && a < T) {
+#pragma unroll
+                            for (int b = 0; b < T; ++b) {
+                                const float tap = p.t[a * T + b];
+#pragma unroll
+                                for (int c = 0; c < IC; ++c)
+                                    acc[j][c] = fmaf(tap, w[2 * c + b], acc[j][c]);
+                            }
+                        }
+                    }
+                } else {
+                    // Quad row q of phase ey meets window row r at table row
+                    // r - q, live from the phase's start; so along W.
+#pragma unroll
+                    for (int q = 0; q < IR / 2; ++q) {
+#pragma unroll
+                        for (int ey = 0; ey < 2; ++ey) {
+                            const int ky = r - q, sy = ey ? SY : 0;
+                            if (ky >= sy && ky < sy + T / 2) {
+#pragma unroll
+                                for (int ex = 0; ex < 2; ++ex) {
+                                    const int sx = ex ? SX : 0;
+#pragma unroll
+                                    for (int kx = sx; kx < sx + T / 2; ++kx) {
+                                        const float tap = p.t[((ey * 2 + ex) * E + ky) * E + kx];
+#pragma unroll
+                                        for (int h = 0; h < IC / 2; ++h)
+                                            acc[2 * q + ey][2 * h + ex] =
+                                                fmaf(tap, w[h + kx], acc[2 * q + ey][2 * h + ex]);
+                                    }
+                                }
+                            }
+                        }
+                    }
+                }
+            }
+            const int ox = ox0 + cb * IC;
+#pragma unroll
+            for (int j = 0; j < IR; ++j) {
+                const int oy = oy0 + rb * IR + j;
+                if (oy >= p.out_h) break;
+                Tp* dst = yp + (long long)oy * p.out_w + ox;
+#pragma unroll
+                for (int c = 0; c < IC; c += 4) {
+                    if (ox + c >= p.out_w) break;
+                    if (vec4) {  // out_w % 4 == 0: all 4 inside, aligned
+                        store4(dst + c, make_float4(acc[j][c], acc[j][c + 1], acc[j][c + 2],
+                                                    acc[j][c + 3]));
+                    } else if (pairs) {  // out_w and ox even: a pair is inside or outside
+                        store2(dst + c, acc[j][c], acc[j][c + 1]);
+                        if (ox + c + 2 < p.out_w) store2(dst + c + 2, acc[j][c + 2], acc[j][c + 3]);
+                    } else {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            if (ox + c + e < p.out_w) store(dst + c + e, acc[j][c + e]);
+                    }
+                }
+            }
+        }
+    }
+}
+
+template <int UP, int DOWN, int SY, int SX>
+static cudaError_t launch_f2d(int dtype, const void* x, void* y, const Upfirdn2dF2dParams& p,
+                              size_t smem, cudaStream_t s) {
+    const dim3 block(UPFIRDN2D_THREADS);
+    // A few planes per block, so that loading the next one overlaps
+    // filtering this one; gridDim.z is at most 65535, the plane loop covers
+    // the rest.
+    const long long gz = (p.planes + UPFIRDN2D_SEPN_PLANES_PER_BLOCK - 1) /
+                         UPFIRDN2D_SEPN_PLANES_PER_BLOCK;
+    const dim3 grid((p.out_w + p.tow - 1) / p.tow, (p.out_h + p.toh - 1) / p.toh,
+                    (unsigned)(gz < 65535 ? gz : 65535));
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    if (dtype == 0)
+        return launch_kernel(upfirdn2d_kernel_f2d<UP, DOWN, SY, SX, float>, grid, block, smem, s,
+                             (const float*)x, (float*)y, p);
+    return launch_kernel(upfirdn2d_kernel_f2d<UP, DOWN, SY, SX, __nv_bfloat16>, grid, block, smem,
+                         s, (const __nv_bfloat16*)x, (__nv_bfloat16*)y, p);
+}
+
+// x: [planes, in_h, in_w]; y: [planes, out_h, out_w]. taps: a host array of
+// UPFIRDN2D_F2D_PARAMS floats (see Upfirdn2dF2dParams). (up, down) must be
+// (1, 2) or (2, 1), the same on both axes, with a 12x12 filter. shift_x /
+// shift_y (up 2 only): 1 where phase 1's live taps start at table entry 1.
+extern "C" int upfirdn2d_f2d_launch(const void* x, void* y, int dtype, long long planes,
+                                    int in_h, int in_w, int out_h, int out_w, int up, int down,
+                                    int ox, int oy, int shift_x, int shift_y, int toh, int tow,
+                                    int smem_bytes, const float* taps, void* stream) {
+    const bool variant = (up == 1 && down == 2) || (up == 2 && down == 1);
+    const int max_h = up == 1 ? UPFIRDN2D_F2D_DOWN_TOH : UPFIRDN2D_F2D_UP_TOH;
+    const int max_w = up == 1 ? UPFIRDN2D_F2D_DOWN_TOW : UPFIRDN2D_F2D_UP_TOW;
+    const int ic = up == 1 ? 4 : 8;
+    if (!variant || (dtype != 0 && dtype != 1) || planes < 0 ||
+        in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 || taps == nullptr ||
+        shift_x < 0 || shift_x > 1 || shift_y < 0 || shift_y > 1 ||
+        (up == 1 && (shift_x != 0 || shift_y != 0)) ||
+        toh < 4 || toh % 4 != 0 || toh > max_h || tow < ic || tow % ic != 0 || tow > max_w)
+        return (int)cudaErrorInvalidValue;
+    const size_t need = f2d_smem_bytes(up, toh);
+    if ((size_t)smem_bytes != need || need > UPFIRDN2D_MAX_SMEM_BYTES)
+        return (int)cudaErrorInvalidValue;
+    if (planes == 0) return (int)cudaSuccess;
+
+    Upfirdn2dF2dParams p;
+    p.planes = planes;
+    p.in_h = in_h; p.in_w = in_w; p.out_h = out_h; p.out_w = out_w;
+    p.ox = ox; p.oy = oy; p.toh = toh; p.tow = tow;
+    p.pairs = in_w % 2 == 0 && ((uintptr_t)x % (2 * (dtype == 0 ? 4 : 2))) == 0;
+    for (int i = 0; i < UPFIRDN2D_F2D_PARAMS; ++i) p.t[i] = taps[i];
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    if (up == 1) err = launch_f2d<1, 2, 0, 0>(dtype, x, y, p, need, s);
+    else if (shift_y == 0 && shift_x == 0) err = launch_f2d<2, 1, 0, 0>(dtype, x, y, p, need, s);
+    else if (shift_y == 0) err = launch_f2d<2, 1, 0, 1>(dtype, x, y, p, need, s);
+    else if (shift_x == 0) err = launch_f2d<2, 1, 1, 0>(dtype, x, y, p, need, s);
+    else err = launch_f2d<2, 1, 1, 1>(dtype, x, y, p, need, s);
     return (int)err;
 }
 

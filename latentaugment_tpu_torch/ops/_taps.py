@@ -2,8 +2,9 @@
 
 The variants take their taps as kernel parameters (constant memory), so
 the wrapper needs them on the host. `host_taps` copies a filter tensor
-once and remembers it; `correlation_taps` and `polyphase_table` are plain
-Python on the copied values and run anywhere.
+once and remembers it; `correlation_taps`, `polyphase_table` and
+`polyphase_table_2d` are plain Python on the copied values and run
+anywhere.
 """
 
 import collections
@@ -55,19 +56,47 @@ def polyphase_table(taps, up, pad):
     or the last of them 0. Any `up` that divides the tap count: 2 for the
     4-tap `u2d1` variant, 2 and 4 for `sepn`'s 12- and 24-tap filters.
     Returns (rows, j0)."""
-    n, rem = divmod(len(taps), up)
+    entries, j0 = _phase_entries(len(taps), up, pad)
+    return tuple(tuple(0.0 if a is None else taps[a] for a in row) for row in entries), j0
+
+
+def polyphase_table_2d(taps, up, pad_x, pad_y):
+    """`polyphase_table` of a 2-D filter, by output phase on both axes.
+
+    `taps` are the rows of a [fh][fw] correlation filter; `pad_x` and
+    `pad_y` the low paddings. Output (up * gy + ey, up * gx + ex) is
+    sum over (ky, kx) of table[ey][ex][ky][kx] * input[gy + j0y + ky][gx + j0x + kx],
+    each phase's table (fh / up + 1) x (fw / up + 1) with its first or last
+    row and column 0, like the 1-D rows. Returns (table, (j0x, j0y),
+    (starts_x, starts_y)): starts[e] is the entry at which phase e's live
+    taps begin (0 or 1 for up 2, `f2d`'s shifts)."""
+    rows_y, j0y = _phase_entries(len(taps), up, pad_y)
+    rows_x, j0x = _phase_entries(len(taps[0]), up, pad_x)
+    table = tuple(tuple(tuple(tuple(0.0 if a is None or b is None else taps[a][b] for b in rx)
+                              for a in ry) for rx in rows_x) for ry in rows_y)
+
+    def starts(rows):
+        return tuple(next(k for k, a in enumerate(row) if a is not None) for row in rows)
+
+    return table, (j0x, j0y), (starts(rows_x), starts(rows_y))
+
+
+def _phase_entries(n_taps, up, pad):
+    """The tap index that each entry of each phase's table row takes (None
+    for the zero entry), and j0: `polyphase_table` without the values."""
+    n, rem = divmod(n_taps, up)
     if rem:
-        raise ValueError(f"{len(taps)} taps do not split into {up} phases")
+        raise ValueError(f"{n_taps} taps do not split into {up} phases")
     first = [-((pad - e) // up) for e in range(up)]  # ceil((e - pad) / up)
     j0 = min(first)
     rows = []
     for e in range(up):
         phi = up * first[e] - (e - pad)
-        row = [0.0] * (n + 1)
+        row = [None] * (n + 1)
         for k in range(n):
-            row[k + first[e] - j0] = taps[phi + k * up]
-        rows.append(tuple(row))
-    return tuple(rows), j0
+            row[k + first[e] - j0] = phi + k * up
+        rows.append(row)
+    return rows, j0
 
 
 @functools.lru_cache(maxsize=1024)

@@ -14,8 +14,9 @@ Two implementations sit side by side:
   * the same decomposed form with impl='auto' on the inner calls, for a
     CUDA tensor and a 2-D `fu` or `fd` (the radial filters of StyleGAN3-R's
     layers that are not critically sampled): kernel K1 for the two
-    bias_act steps and kernel K2 for the two FIRs, K2's `generic` variant
-    with its tap count at run time. The JAX package makes the same choice
+    bias_act steps and kernel K2 for the two FIRs: the 1-D up filter
+    through K2's `sepn`, the radial 12x12 down filter (and its backward)
+    through K2's `f2d`. The JAX package makes the same choice
     at the same place, from the filters' rank alone (`_fused_geometry`
     returns None for a non-separable filter, filtered_lrelu.py:143-145).
     `decomposed_calls['filtered_lrelu_decomposed']` counts these calls.
@@ -117,8 +118,9 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
 def _route(device, fu, fd, impl):
     """Which form runs, from the device, the filters' rank and `impl`
     alone, before any launch: 'ref' (the plain version: CPU tensors or
-    impl='ref'), 'decomposed' (a CUDA tensor and a 2-D filter: K1 and K2)
-    or 'k3' (a CUDA tensor and 1-D filters)."""
+    impl='ref'), 'decomposed' (a CUDA tensor and a 2-D filter: K1 and K2;
+    StyleGAN3-R's radial down filter runs on K2's `f2d`, its 1-D up
+    filter on `sepn`) or 'k3' (a CUDA tensor and 1-D filters)."""
     if impl == 'ref' or device.type == 'cpu':
         return 'ref'
     if device.type != 'cuda':

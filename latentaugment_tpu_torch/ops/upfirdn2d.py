@@ -18,19 +18,23 @@ Two implementations sit side by side:
     card. It takes filters of up to 64 taps per axis, 1-D or 2-D, and
     raises for larger ones.
 
-K2 is bound by bytes (`work` counts them). `_plan` picks, from the
-geometry alone, one of the kernel's variants and its tile: `u1d1`, `u1d2`
-and `u2d1` (the separable 4-tap filter at the three rate pairs of the
-StyleGAN2 walk and its backward: a staged shared-memory tile, two
-register-blocked 1-D passes, taps as kernel parameters), `sepn` (the
-same design for StyleGAN3-R's 1-D filters on the decomposed
-filtered_lrelu: up 2 with 12 taps, up 4 with 24, and their backwards at
-down 2 and 4, with host-built polyphase tables) or `generic` (2-D
-filters, other rates, other tap counts: one thread per output), which
-has two instantiations: tap loops unrolled for at most 4 taps per axis,
-and a tap count known only at run time for up to 64 (StyleGAN3-R's
-radial 12x12 down filter). The launcher refuses a plan that does not
-fit its variant, and nothing retries through another one.
+K2 is bound by bytes, StyleGAN3-R's radial filter by operations (`work`
+counts both). `_plan` picks, from the geometry alone, one of the
+kernel's variants and its tile: `u1d1`, `u1d2` and `u2d1` (the separable
+4-tap filter at the three rate pairs of the StyleGAN2 walk and its
+backward: a staged shared-memory tile, two register-blocked 1-D passes,
+taps as kernel parameters), `sepn` (the same design for StyleGAN3-R's
+1-D filters on the decomposed filtered_lrelu: up 2 with 12 taps, up 4
+with 24, and their backwards at down 2 and 4, with host-built polyphase
+tables), `f2d` (StyleGAN3-R's radial 12x12 filter at down 2 and its
+backward at up 2: a staged tile, a register block of outputs per
+thread, the taps or the host-built 2-D polyphase tables as kernel
+parameters) or `generic` (other 2-D filters, other rates, other tap
+counts: one thread per output), which has two instantiations: tap loops
+unrolled for at most 4 taps per axis, and a tap count known only at run
+time for up to 64. No path on the card plans `generic`. The launcher
+refuses a plan that does not fit its variant, and nothing retries
+through another one.
 `variant_launches` counts launches by variant. The header of the .cu
 file says what bounds it and how.
 """
@@ -47,7 +51,7 @@ from . import _build, _taps
 # Launches of kernel K2 (forward and backward), counted where launched,
 # in all and by the plan's variant.
 launches = {'upfirdn2d': 0}
-variant_launches = {'u1d1': 0, 'u1d2': 0, 'u2d1': 0, 'sepn': 0, 'generic': 0}
+variant_launches = {'u1d1': 0, 'u1d2': 0, 'u2d1': 0, 'sepn': 0, 'f2d': 0, 'generic': 0}
 
 
 def _parse_scaling(scaling):
@@ -207,6 +211,14 @@ _SEP4_TILES = {'u1d1': (32, 128), 'u1d2': (32, 64), 'u2d1': (32, 128)}
 _SEPN_TILES = {(2, 1, 12): (64, 128), (4, 1, 24): (64, 128), (1, 2, 12): (32, 64),
                (1, 4, 24): (16, 32)}
 _SEPN_MAX_TAPS = 28  # UPFIRDN2D_SEPN_MAX_TAPS in the .cu file
+# `f2d`, the 2-D 12x12 filter: (up, down) -> the output tile on a large
+# map. By up alone (its down is the other rate): the largest tile its
+# launcher takes (UPFIRDN2D_F2D_{DOWN,UP}_TO{H,W} in the .cu file; its
+# staged row fixes the pitch) and the columns of a thread's item (rows: 4).
+_F2D_TILES = {(1, 2): (64, 64), (2, 1): (64, 128)}
+_F2D_MAX_TILE = {1: (64, 64), 2: (64, 128)}
+_F2D_ITEM_COLS = {1: 4, 2: 8}
+_F2D_PARAMS = 196  # UPFIRDN2D_F2D_PARAMS: 4 phases of 7x7 (up 2), 144 taps (down 2)
 
 
 def _library():
@@ -220,6 +232,8 @@ def _library():
         lib.upfirdn2d_sep4_launch.restype = i
         lib.upfirdn2d_sepn_launch.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 12 + [p] * 3
         lib.upfirdn2d_sepn_launch.restype = i
+        lib.upfirdn2d_f2d_launch.argtypes = [p, p, i, ctypes.c_longlong] + [i] * 13 + [p] * 2
+        lib.upfirdn2d_f2d_launch.restype = i
     return lib
 
 
@@ -252,14 +266,34 @@ def _sepn_smem_bytes(up, down, taps, toh, tow):
     return 4 * (_round_up(xh * px, 4) + xh * (tow + 4))
 
 
+def _f2d_window(up, n):
+    """Staged rows / columns of `f2d` under n outputs (f2d_window in the
+    .cu file)."""
+    return 2 * n + 10 if up == 1 else n // 2 + 6
+
+
+def _f2d_smem_bytes(up, toh):
+    """Shared memory of `f2d` at rate `up` (f2d_smem_bytes in the .cu
+    file): the staged rows at a fixed pitch, the widest tile's row with a
+    gap of 2 floats after every 32 columns, made even."""
+    xw = _f2d_window(up, _F2D_MAX_TILE[up][1])
+    pitch = ((xw - 1) + 2 * ((xw - 1) // 32) + 2) & ~1
+    return 4 * _f2d_window(up, toh) * pitch
+
+
 def _plan(f_shape, up, down, out_hw):
     """The kernel variant and tile for a filter of shape `f_shape`, rate
     pairs `up` and `down` (x, y) and an output of `out_hw`: a dict with
-    'variant' and, for the separable variants, the output tile ('toh',
+    'variant' and, for the staged variants, the output tile ('toh',
     'tow') and its shared memory ('smem'; `sepn` also its 'taps').
     `generic` takes up to _MAX_TAPS taps per axis (its launcher picks the
     unrolled instantiation for 4 or fewer); a larger filter raises."""
     same = up[0] == up[1] and down[0] == down[1]
+    if tuple(f_shape) == (12, 12) and same and (up[0], down[0]) in _F2D_TILES:
+        toh, tow = _F2D_TILES[(up[0], down[0])]
+        toh = min(toh, _round_up(out_hw[0], 4))
+        tow = min(tow, _round_up(out_hw[1], _F2D_ITEM_COLS[up[0]]))
+        return dict(variant='f2d', toh=toh, tow=tow, smem=_f2d_smem_bytes(up[0], toh))
     sepn = len(f_shape) == 1 and same and (up[0], down[0], f_shape[0]) in _SEPN_TILES
     if sepn:
         key = (up[0], down[0], f_shape[0])
@@ -338,6 +372,23 @@ def _sepn_taps(f, up, down, padding, flip_filter, gain):
     return _taps.c_floats(tx, _SEPN_MAX_TAPS), _taps.c_floats(ty, _SEPN_MAX_TAPS), ox, oy
 
 
+def _f2d_taps(f, up, padding, flip_filter, gain):
+    """Host array and origins of an `f2d` launch: (taps, ox, oy, shift_x,
+    shift_y). Down 2: the 144 correlation taps and the low padding. Up 2:
+    the four phases' 7x7 tables (`_taps.polyphase_table_2d`), the input
+    index of their first entry and where phase 1's live taps start. The
+    gain is folded into the taps."""
+    fh, fw = f.shape
+    flat = _taps.correlation_taps(_taps.host_taps(f.reshape(-1)), flip_filter, gain)
+    padx0, _, pady0, _ = padding
+    if up == 1:
+        return _taps.c_floats(flat, _F2D_PARAMS), padx0, pady0, 0, 0
+    rows = [flat[i * fw:(i + 1) * fw] for i in range(fh)]
+    table, (ox, oy), (starts_x, starts_y) = _taps.polyphase_table_2d(rows, up, padx0, pady0)
+    values = tuple(v for by_ex in table for phase in by_ex for row in phase for v in row)
+    return _taps.c_floats(values, _F2D_PARAMS), ox, oy, starts_x[1], starts_y[1]
+
+
 def _output_shape(x, f, up, down, padding):
     """[N, C, out_h, out_w] of a launch, from the shapes alone."""
     if x.dtype not in _DTYPE_CODE:
@@ -398,6 +449,12 @@ def _launch(x, f, up, down, padding, flip_filter, gain):
                 float(gain), stream)
         elif plan['smem'] > _MAX_SMEM_BYTES:
             raise RuntimeError(f"upfirdn2d plan {plan} exceeds the card's shared memory")
+        elif plan['variant'] == 'f2d':
+            taps, ox, oy, sx, sy = _f2d_taps(f, upx, padding, flip_filter, float(gain))
+            err = lib.upfirdn2d_f2d_launch(
+                x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], n * c, in_h, in_w,
+                out_h, out_w, upx, downx, ox, oy, sx, sy, plan['toh'], plan['tow'],
+                plan['smem'], ctypes.addressof(taps), stream)
         elif plan['variant'] == 'sepn':
             tx, ty, ox, oy = _sepn_taps(f, upx, downx, padding, flip_filter, float(gain))
             err = lib.upfirdn2d_sepn_launch(

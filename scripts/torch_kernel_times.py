@@ -17,15 +17,16 @@ calls); the inputs of one case (up to 0.9 GB) exceed the 50 MB L2 cache.
 list in place of the plan's own choice (tile null), to check the plan's
 cost model against the card; tiles whose shared memory does not fit are
 reported as refused. The StyleGAN3-R cases (`R L11 fu up 2`, `R L10 fu up
-4`, `R L10 radial fd down 2`) time K2 on the R plan's largest layers at
-batch 16 in bf16, through whatever variant the checkout's plan picks.
-With `--sweep-tiles` the 1-D cases also run `sepn` at a few other tiles.
-`--sg3r-walk` also times the SG3-R walk (benchmark.build_synthetic_setup
-at batch 16: K=10 Adam steps and the final synthesis; median of 3, CUDA
-events) and splits one walk's device time under torch.profiler by kind
-of kernel, K2 by variant (`sepn`, `sep4`, `generic`: the kernels'
-names). One JSON object per line on stdout, then the card's name and
-power limit.
+4`, `R L10 radial fd down 2`, `R L11 radial fd down 2`) time K2 on the R
+plan's largest layers at batch 16 in bf16 (the radial filter's backward
+is its up 2), through whatever variant the checkout's plan picks. With
+`--sweep-tiles` the 1-D cases also run `sepn`, and the radial ones `f2d`,
+at a few other tiles. `--sg3r-walk` also times the SG3-R walk
+(benchmark.build_synthetic_setup at batch 16: K=10 Adam steps and the
+final synthesis; median of 3, CUDA events) and splits one walk's device
+time under torch.profiler by kind of kernel, K2 by variant (`sepn`,
+`f2d`, `sep4`, `generic`: the kernels' names). One JSON object per line
+on stdout, then the card's name and power limit.
 """
 
 import argparse
@@ -68,6 +69,7 @@ def time_case(torch, fn, x):
 # split the same way.
 _KINDS = (
     ("K2 upfirdn2d sepn", ("upfirdn2d_kernel_sepn",)),
+    ("K2 upfirdn2d f2d", ("upfirdn2d_kernel_f2d",)),
     ("K2 upfirdn2d sep4", ("upfirdn2d_kernel_sep4",)),
     ("K2 upfirdn2d generic", ("upfirdn2d_kernel",)),
     ("K3 filtered_lrelu", ("filtered_lrelu_kernel",)),
@@ -247,7 +249,8 @@ def main():
                                          channel_base=32768, channel_max=512, **benchmark.SG3R)
     r_layers = {layer.name.split("_")[0]: layer for layer in g_cfg.layers if layer.down_radial}
     for name, lname, which in [("R L11 fu up 2", "L11", "fu"), ("R L10 fu up 4", "L10", "fu"),
-                               ("R L10 radial fd down 2", "L10", "fd")]:
+                               ("R L10 radial fd down 2", "L10", "fd"),
+                               ("R L11 radial fd down 2", "L11", "fd")]:
         if only and name not in only:
             continue
         layer = r_layers[lname]
@@ -261,21 +264,29 @@ def main():
             mid = n_in * layer.up_factor + lo + hi - (fu.shape[0] - 1)
             shape, fr, kw = [16, layer.out_channels, mid, mid], fd, dict(down=layer.down_factor)
         x = torch.randn(shape, generator=g, device=dev).to(bf16)
-        # --sweep-tiles: `sepn`'s tiles of this case's forward and backward
-        # rows, in place of the plan's (up, down, taps) -> tile.
+        # --sweep-tiles: other tiles of this case's forward and backward
+        # rows in place of the plan's, in `sepn`'s (up, down, taps) -> tile
+        # or `f2d`'s (up, down) -> tile (at most its launcher's largest),
+        # where the checkout has the table.
         u, t = layer.up_factor, fr.shape[0]
-        sweep = [None]
-        if args.sweep_tiles and which == "fu" and hasattr(up, "_SEPN_TILES"):
-            sweep += [{(u, 1, t): fwd_tile, (1, u, t): bwd_tile} for fwd_tile, bwd_tile in
+        if which == "fu":
+            tiles, tiles_key = getattr(up, "_SEPN_TILES", None), "sepn_tiles"
+            others = [{(u, 1, t): fwd_tile, (1, u, t): bwd_tile} for fwd_tile, bwd_tile in
                       [((32, 128), (32, 32)), ((64, 64), (16, 64)), ((32, 256), (8, 64)),
                        ((128, 128), (32, 64))]]
-        planned = dict(getattr(up, "_SEPN_TILES", {}))
+        else:
+            tiles, tiles_key = getattr(up, "_F2D_TILES", None), "f2d_tiles"
+            others = [{(1, 2): fwd_tile, (2, 1): bwd_tile} for fwd_tile, bwd_tile in
+                      [((32, 64), (32, 128)), ((64, 32), (64, 64)), ((48, 64), (32, 64)),
+                       ((64, 48), (64, 96))]]
+        sweep = [None] + (others if args.sweep_tiles and tiles is not None else [])
+        planned = dict(tiles or {})
         for tiles_now in sweep:
-            up._SEPN_TILES = {**planned, **(tiles_now or {})}
             before = dict(up.variant_launches)
             row = {"kernel": "upfirdn2d", "case": name, "shape": shape, "dtype": "bfloat16"}
             if tiles_now is not None:
-                row["sepn_tiles"] = {str(k): v for k, v in tiles_now.items()}
+                tiles.update(tiles_now)
+                row[tiles_key] = {str(k): v for k, v in tiles_now.items()}
             try:
                 row["fwd_ms"], row["bwd_ms"] = time_case(
                     torch, lambda x: up.upfirdn2d(x, fr, **kw), x)
@@ -283,10 +294,11 @@ def main():
                 if tiles_now is None:
                     raise
                 row["refused"] = str(e)[:80]
+            finally:
+                if tiles_now is not None:
+                    tiles.update(planned)
             row["variants"] = sorted(k for k, v in up.variant_launches.items() if v != before[k])
             emit(row)
-        if planned:
-            up._SEPN_TILES = planned
         del x
         torch.cuda.empty_cache()
 

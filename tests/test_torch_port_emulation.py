@@ -209,12 +209,12 @@ def test_upfirdn2d_2d_filter_takes_the_generic_kernel(emulated):
 # StyleGAN3-R's layers on the decomposed filtered_lrelu, as the 256x256
 # plan (generator_config(use_radial_filters=True, conv_kernel=1)) gives
 # them, at a few pixels: the 1-D up filter (12 taps at up 2, 24 at up 4)
-# through `sepn`, and the radial 12x12 down filter at down 2 through the
-# run-time generic instantiation, each forward and backward.
+# through `sepn`, and the radial 12x12 down filter at down 2 through `f2d`,
+# each forward and backward.
 SG3R_CASES = {
-    "radial fd 12x12, down 2": ([1, 2, 30, 27], (12, 12), dict(down=2), "generic"),
+    "radial fd 12x12, down 2": ([1, 2, 30, 27], (12, 12), dict(down=2), "f2d"),
     "radial fd 12x12, down 2, corr": ([2, 1, 29, 30], (12, 12),
-                                      dict(down=2, flip_filter=True), "generic"),
+                                      dict(down=2, flip_filter=True), "f2d"),
     "fu 12 taps, up 2, pad (11,10)": ([1, 2, 9, 11], (12,),
                                       dict(up=2, padding=(11, 10, 11, 10), gain=4), "sepn"),
     "fu 24 taps, up 4, crop (-2,-5)": ([1, 1, 9, 10], (24,),
@@ -222,15 +222,11 @@ SG3R_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", list(SG3R_CASES))
-def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
-    """K2 on the R plan's filters against the plain version: the radial
-    filter through `generic` with its tap count at run time, the 1-D up
-    filters (and their backwards at down 2 and 4) through `sepn`; 1e-5 in
-    float32, 1e-2 in bfloat16."""
-    shape, f_shape, kw, variant = SG3R_CASES[name]
-    g = torch.Generator().manual_seed(len(name))
+def _fwd_bwd_against_plain(shape, f_shape, kw, variant, dtype, seed):
+    """K2 through the autograd Function on a random filter of `f_shape`,
+    forward and backward, against the plain version: both launches in
+    `variant`, 1e-5 in float32, 1e-2 in bfloat16."""
+    g = torch.Generator().manual_seed(seed)
     f = torch.randn(f_shape, generator=g) / f_shape[0]
     x = torch.randn(shape, generator=g).to(dtype)
     args = (up._parse_scaling(kw.get("up", 1)), up._parse_scaling(kw.get("down", 1)),
@@ -252,6 +248,34 @@ def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
     tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
     assert _rel_err(y_k, y_r.detach()) <= tol
     assert _rel_err(dx_k, dx_r) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(SG3R_CASES))
+def test_upfirdn2d_sg3r_filters_through_the_runtime_taps(emulated, name, dtype):
+    """K2 on the R plan's filters against the plain version: the radial
+    filter (and its backward at up 2) through `f2d`, the 1-D up filters
+    (and their backwards at down 2 and 4) through `sepn`; 1e-5 in float32,
+    1e-2 in bfloat16."""
+    _fwd_bwd_against_plain(*SG3R_CASES[name], dtype, len(name))
+
+
+# `generic`'s run-time-tap instantiation (more than 4 taps an axis) on
+# filters and rates no staged variant takes, forward and backward (the
+# backward is `generic` again, up and down swapped).
+GENERIC_RUNTIME_CASES = {
+    "12x12, down 3": ([1, 2, 30, 27], (12, 12), dict(down=3)),
+    "8x8, down 2, crop, corr": ([2, 1, 29, 30], (8, 8),
+                                dict(down=2, padding=(-1, 2, 3, -2), flip_filter=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(GENERIC_RUNTIME_CASES))
+def test_upfirdn2d_generic_runtime_taps_match_plain(emulated, name, dtype):
+    """`upfirdn2d_kernel<0, T>` against the plain version: 1e-5 in
+    float32, 1e-2 in bfloat16."""
+    _fwd_bwd_against_plain(*GENERIC_RUNTIME_CASES[name], "generic", dtype, len(name))
 
 
 # `sepn` called directly at a few pixels: each of its four (up, down, taps)
@@ -304,11 +328,70 @@ def test_upfirdn2d_sepn_sources_match_plain(emulated, name, dtype):
     assert _rel_err(dx_k, dx_r) <= tol
 
 
+# `f2d` called through the autograd Function at a few pixels: the radial
+# 12x12 filter at down 2 and at up 2 (the backward of the other), odd and
+# even output widths, padding and crops (both parities: the up-2 phases'
+# shifts), both flips, several planes a block, maps smaller than one tile
+# and, with the plan's tiles cut (`tiles`), maps of 2x2 tiles and more.
+F2D_CASES = {
+    "down 2, odd out_w": ([1, 2, 31, 32], dict(down=2), None),
+    "down 2, crop, corr": ([2, 1, 30, 29], dict(down=2, padding=(-1, 2, 3, -2),
+                                                flip_filter=True), None),
+    "down 2, mixed pad parity": ([1, 1, 25, 27], dict(down=2, padding=(2, 1, 1, 4)), None),
+    "up 2, odd pad": ([1, 2, 9, 11], dict(up=2, padding=(11, 10, 11, 10), gain=4), None),
+    "up 2, even pad, corr": ([1, 1, 10, 9], dict(up=2, padding=(10, 9, 8, 11), gain=4,
+                                                 flip_filter=True), None),
+    "down 2, 2x2 tiles": ([1, 1, 32, 32], dict(down=2), {(1, 2): (8, 8), (2, 1): (8, 16)}),
+    "up 2, 2x2 tiles, 12 planes": ([3, 4, 9, 10], dict(up=2, padding=(11, 10, 11, 10), gain=4),
+                                   {(1, 2): (8, 8), (2, 1): (16, 16)}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(F2D_CASES))
+def test_upfirdn2d_f2d_sources_match_plain(emulated, monkeypatch, name, dtype):
+    """K2's staged 2-D polyphase variant against the plain version: the
+    value, the backward (`f2d` at the other rate) and the backward's
+    backward (`f2d` at the first rate again), 1e-5 in float32, 1e-2 in
+    bfloat16."""
+    shape, kw, tiles = F2D_CASES[name]
+    if tiles is not None:
+        monkeypatch.setattr(up, "_F2D_TILES", tiles)
+    g = torch.Generator().manual_seed(len(name))
+    f = torch.randn([12, 12], generator=g) / 12
+    x = torch.randn(shape, generator=g).to(dtype)
+    args = (up._parse_scaling(kw.get("up", 1)), up._parse_scaling(kw.get("down", 1)),
+            up._parse_padding(kw.get("padding", 0)), bool(kw.get("flip_filter", False)),
+            float(kw.get("gain", 1)))
+
+    def ref(x):
+        return up._upfirdn2d_ref(x, f, *args[:2], kw.get("padding", 0), args[3], args[4])
+
+    y_shape = ref(x).shape
+    dy1 = torch.randn(y_shape, generator=g).to(dtype)
+    dy2 = torch.randn(x.shape, generator=g).to(dtype)
+    want = _second_order(ref, x, dy1, dy2)
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    got = _second_order(lambda x: up._Upfirdn2dFunction.apply(x, f, *args), x, dy1, dy2)
+    assert up.launches["upfirdn2d"] == n + 3 and up.variant_launches == dict(nv, f2d=nv["f2d"] + 3)
+    if "odd" in name:
+        assert y_shape[3] % 2 == 1 or x.shape[3] % 2 == 1
+    if tiles is not None:
+        for rates, hw in ((args[:2], y_shape[2:]), (args[1::-1], x.shape[2:])):
+            plan = up._plan((12, 12), *rates, tuple(hw))
+            assert hw[0] > plan["toh"] and hw[1] > plan["tow"]
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}[dtype]
+    for k, r in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert k.shape == r.shape and k.dtype == dtype
+        assert _rel_err(k, r) <= tol
+    assert not got[2].any() and not want[2].any()  # K2 is linear: no d/dx
+
+
 def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatch):
     """The decomposed form with impl='auto', as filtered_lrelu runs it for a
     CUDA tensor and a 2-D fd (the route itself: test_torch_port_plans.py):
     both FIRs through the host-built K2 (the 1-D up filter through `sepn`,
-    the radial down filter through `generic` with run-time taps), the two
+    the radial down filter through `f2d`), the two
     bias_act steps through K1's stand-in launchers, never K3; against the
     plain version at the R plan's L0 geometry, 1e-5 in float32."""
     monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
@@ -348,10 +431,9 @@ def test_sg3r_decomposed_filtered_lrelu_through_the_sources(emulated, monkeypatc
     monkeypatch.undo()
     assert impls == ["auto"] * 4
     assert fl.launches == n_k3
-    # The 1-D up FIR through `sepn`, the 2-D down FIR through `generic`,
-    # each forward and backward.
-    assert up.variant_launches == dict(n_up, sepn=n_up["sepn"] + 2,
-                                       generic=n_up["generic"] + 2)
+    # The 1-D up FIR through `sepn`, the 2-D down FIR through `f2d`, each
+    # forward and backward.
+    assert up.variant_launches == dict(n_up, sepn=n_up["sepn"] + 2, f2d=n_up["f2d"] + 2)
     assert ba.launches["bias_act_fwd"] == n_ba["bias_act_fwd"] + 2
     xr = x.clone().requires_grad_(True)
     y_r = fl._filtered_lrelu_ref(xr, fu, fd, b, *args)
@@ -437,6 +519,30 @@ def test_launchers_refuse_a_plan_that_does_not_fit(host_libraries):
                     smem=up._sepn_smem_bytes(2, 1, 12, 8, plan_s["tow"])) == 0
     assert launch_s(up_=2, down=1, taps=12, toh=4,  # up: rows a multiple of 8
                     smem=up._sepn_smem_bytes(2, 1, 12, 4, plan_s["tow"])) == 1
+
+    # `f2d`: down 2 or up 2 only, its own shared memory, rows of 4, columns
+    # of its item, at most its widest tile, shifts only at up 2.
+    kf = host_libraries["upfirdn2d.cu"].upfirdn2d_f2d_launch
+    kf.argtypes = [p, p, i, ll] + [i] * 13 + [p] * 2
+    x4 = torch.zeros([1, 1, 20, 20])
+    taps_f = (ctypes.c_float * 196)()
+
+    def launch_f(up_=1, down=2, toh=8, tow=8, smem=None, sx=0, sy=0):
+        smem = up._f2d_smem_bytes(up_, toh) if smem is None else smem
+        return kf(x4.data_ptr(), y.data_ptr(), 0, 1, 20, 20, 4, 4, up_, down, 0, 0, sx, sy,
+                  toh, tow, smem, ctypes.addressof(taps_f), None)
+
+    assert launch_f() == 0
+    assert launch_f(up_=2, down=1, tow=16, sx=1, sy=1) == 0
+    assert launch_f(smem=up._f2d_smem_bytes(1, 8) + 4) == 1
+    assert launch_f(toh=6) == 1                              # rows of 4
+    assert launch_f(up_=2, down=1, tow=12) == 1              # up: columns of 8
+    assert launch_f(toh=68, tow=64) == 1                     # at most 64 rows
+    assert launch_f(tow=68) == 1                             # down: at most 64 columns
+    assert launch_f(up_=2, down=1, tow=136) == 1             # up: at most 128
+    assert launch_f(sx=1) == 1                               # no shift at down 2
+    assert launch_f(up_=2, down=2, smem=up._f2d_smem_bytes(2, 8)) == 1
+    assert launch_f(up_=1, down=1, smem=up._f2d_smem_bytes(1, 8)) == 1
 
 
 def _second_order(fn, x, dy1, dy2):

@@ -189,16 +189,20 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ["radial 12x12 down 2", "24 taps up 4"])
+@pytest.mark.parametrize("case", ["radial 12x12 down 2", "24 taps up 4", "12x12 down 3"])
 def test_upfirdn2d_runtime_taps_match_plain(cuda, case, dtype):
     """K2 on StyleGAN3-R's filters (the R plan's L10 at a few channels):
-    the radial filter through `generic` with its tap count at run time,
-    the 1-D 24-tap up filter through `sepn`; 1e-5 in float32, 1e-2 in
+    the radial filter through `f2d` (its backward at up 2 too), the 1-D
+    24-tap up filter through `sepn`; and a 12x12 filter at down 3 through
+    `generic` with its tap count at run time. 1e-5 in float32, 1e-2 in
     bfloat16, forward and backward."""
     g = torch.Generator(device=cuda).manual_seed(3)
     if case.startswith("radial"):
         f = torch.randn([12, 12], generator=g, device=cuda) / 12
-        shape, kw, variant = [2, 8, 562, 562], dict(down=2), "generic"
+        shape, kw, variant = [2, 8, 562, 562], dict(down=2), "f2d"
+    elif case.startswith("12x12"):
+        f = torch.randn([12, 12], generator=g, device=cuda) / 12
+        shape, kw, variant = [2, 8, 190, 187], dict(down=3, padding=(1, 2, 0, 3)), "generic"
     else:
         f = torch.randn([24], generator=g, device=cuda) / 24
         shape, kw = [2, 8, 148, 148], dict(up=4, padding=(-2, -5, -2, -5), gain=16)
@@ -479,3 +483,42 @@ def test_filtered_lrelu_kernel_refuses_what_it_does_not_take(cuda):
         nd["filtered_lrelu_decomposed"] + 1
     y_r = fl.filtered_lrelu(x, fu, fd2, up=2, down=2, padding=5, impl="ref")
     assert _rel_err(y, y_r) <= 1e-5
+
+
+# `f2d` at the R plan's sizes (a few channels) and odd cases: (input shape,
+# arguments); the backward is `f2d` at the other rate.
+F2D_GPU_CASES = {
+    "down 2, L10 radial": ([2, 8, 562, 562], dict(down=2)),
+    "down 2, L0 radial (36x36)": ([2, 6, 82, 82], dict(down=2)),
+    "down 2, odd width, crop, corr": ([1, 3, 141, 139], dict(down=2, padding=(-1, 2, 3, -2),
+                                                            flip_filter=True)),
+    "up 2, L11 backward": ([2, 8, 276, 276], dict(up=2, padding=(11, 10, 11, 10), gain=4)),
+    "up 2, even pad, corr": ([1, 3, 70, 67], dict(up=2, padding=(10, 9, 8, 11), gain=4,
+                                                  flip_filter=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(F2D_GPU_CASES))
+def test_upfirdn2d_f2d_matches_plain(cuda, case, dtype):
+    """K2's staged 2-D polyphase variant against the plain version: 1e-5
+    in float32, 1e-2 in bfloat16, forward and backward, both through
+    `f2d`."""
+    shape, kw = F2D_GPU_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    f = torch.randn([12, 12], generator=g, device=cuda) / 12
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def fn(x, impl):
+        return up.upfirdn2d(x, f, impl=impl, **kw)
+
+    n = dict(up.variant_launches)
+    with torch.no_grad():
+        dy = torch.randn(fn(x, "ref").shape, generator=g, device=cuda).to(dtype)
+    y_k, dx_k = _fwd_bwd(fn, x, dy, "auto")
+    y_r, dx_r = _fwd_bwd(fn, x, dy, "ref")
+    torch.cuda.synchronize()
+    assert up.variant_launches == dict(n, f2d=n["f2d"] + 2)
+    assert y_k.shape == y_r.shape and dx_k.shape == x.shape
+    assert _rel_err(y_k, y_r) <= TOL[dtype]
+    assert _rel_err(dx_k, dx_r) <= TOL[dtype]

@@ -178,9 +178,9 @@ def _sg3r_plan(res):
 @pytest.mark.parametrize("res", [256, 1024])
 def test_k2_plan_takes_every_sg3r_filter_at_run_time(res):
     """Every FIR of StyleGAN3-R's decomposed layers and its backward has a
-    K2 plan: the 2-D fd (filter_size * down_factor taps per axis) K2
-    `generic`, whose launcher takes more than 4 taps per axis at run
-    time, and the 1-D fu (filter_size * up_factor: 12 at up 2, 24 at up
+    K2 plan with its taps at run time: the 2-D fd (filter_size *
+    down_factor = 12 taps per axis) at down 2 and its backward at up 2
+    `f2d`, and the 1-D fu (filter_size * up_factor: 12 at up 2, 24 at up
     4) and its backward at down 2 / 4 `sepn`; 65 taps raise."""
     radial = [layer for layer in _sg3r_plan(res) if layer.down_radial]
     assert radial and all(layer.down_taps == 6 * layer.down_factor == 12 for layer in radial)
@@ -191,8 +191,8 @@ def test_k2_plan_takes_every_sg3r_filter_at_run_time(res):
         u, d = layer.up_factor, layer.down_factor
         assert fu.shape == (6 * u,)
         rates = ((1, 1), (d, d))
-        assert up._plan(fd.shape, *rates, (64, 64)) == dict(variant="generic")
-        assert up._plan(fd.shape, *rates[::-1], (64, 64)) == dict(variant="generic")
+        assert up._plan(fd.shape, *rates, (64, 64))["variant"] == "f2d"
+        assert up._plan(fd.shape, *rates[::-1], (64, 64))["variant"] == "f2d"  # the backward
         rates = ((u, u), (1, 1))
         assert up._plan(fu.shape, *rates, (64, 64))["variant"] == "sepn"
         assert up._plan(fu.shape, *rates[::-1], (64, 64))["variant"] == "sepn"  # the backward
@@ -241,9 +241,81 @@ def test_k2_sepn_smem_of_the_down_4_tile():
                                             ((12,), 2, 2), ((12, 12), 2, 1), ((8,), 2, 1)])
 def test_k2_other_long_filters_stay_generic(f_shape, u, d):
     """Only the four rows of `sepn`: another tap count, a rate pair or a
-    2-D filter plans `generic`, as does a rate that differs by axis."""
-    assert up._plan(f_shape, (u, u), (d, d), (64, 64)) == dict(variant="generic")
+    2-D filter plans `generic`, as does a rate that differs by axis; the
+    2-D 12x12 filter at up 2 is `f2d`'s (the radial filter's backward)."""
+    want = "f2d" if (f_shape, u, d) == ((12, 12), 2, 1) else "generic"
+    assert up._plan(f_shape, (u, u), (d, d), (64, 64))["variant"] == want
     assert up._plan((12,), (2, 1), (1, 1), (64, 64)) == dict(variant="generic")
+
+
+@pytest.mark.parametrize("res", [256, 1024])
+def test_k2_f2d_plan_of_every_sg3r_radial_geometry(res):
+    """Every radial layer of the R plan, forward (down 2 from the up-rate
+    canvas) and backward (up 2 back to it), at batch 16 plans `f2d`: rows
+    of 4, columns of its item, a tile cut to a smaller map, and at most
+    ~112 KB of shared memory (two blocks an SM), the launcher's own
+    formula."""
+    for layer in (layer for layer in _sg3r_plan(res) if layer.down_radial):
+        fu, fd = net3._layer_filters(layer)
+        lo, hi = layer.padding
+        mid = layer.in_size * layer.up_factor + lo + hi - (fu.shape[0] - 1)
+        w = up.work([16, 1024, mid, mid], fd.shape, down=2)
+        out = w["out_shape"][2:]
+        assert out == (layer.out_size, layer.out_size)
+        back = up.transposed_padding((16, 1024, mid, mid), w["out_shape"], (12, 12), (1, 1),
+                                     (2, 2), (0, 0, 0, 0))
+        assert up.work(w["out_shape"], fd.shape, up=2, padding=back)["out_shape"][2:] == (mid, mid)
+        for rates, hw in ((((1, 1), (2, 2)), out), (((2, 2), (1, 1)), (mid, mid))):
+            plan = up._plan(fd.shape, *rates, hw)
+            u, key = rates[0][0], (rates[0][0], rates[1][0])
+            assert plan["variant"] == "f2d", (layer.name, rates)
+            assert plan["toh"] % 4 == 0 and plan["tow"] % up._F2D_ITEM_COLS[u] == 0
+            assert (plan["toh"], plan["tow"]) == (
+                min(up._F2D_TILES[key][0], up._round_up(hw[0], 4)),
+                min(up._F2D_TILES[key][1], up._round_up(hw[1], up._F2D_ITEM_COLS[u])))
+            assert plan["smem"] == up._f2d_smem_bytes(u, plan["toh"]) <= 112 * 1024
+
+
+@pytest.mark.parametrize("f_shape, u, d", [((8, 8), 1, 2), ((12, 12), 1, 3), ((12, 12), 2, 2),
+                                            ((12, 12), 1, 1), ((12, 12), 4, 1), ((24, 24), 1, 2),
+                                            ((12, 8), 1, 2)])
+def test_k2_other_2d_filters_stay_generic(f_shape, u, d):
+    """`f2d` takes the 12x12 filter at down 2 and at up 2 only: another
+    2-D filter, another rate pair, or rates that differ by axis plan
+    `generic`."""
+    assert up._plan(f_shape, (u, u), (d, d), (64, 64)) == dict(variant="generic")
+    assert up._plan((12, 12), (1, 1), (2, 1), (64, 64)) == dict(variant="generic")
+    assert up._plan((12, 12), (2, 1), (1, 1), (64, 64)) == dict(variant="generic")
+
+
+def test_k2_f2d_smem_and_tables():
+    """`f2d`'s shared memory: the staged rows (2 toh + 10 down, toh / 2 + 6
+    up) at the widest tile's pitch (138 and 70 columns with a gap of 2
+    after every 32, made even: 146 and 74 floats); its up-2 tables hold
+    each phase's 36 live taps from the phase's start on, the input index
+    of entry 0 and the starts as `_taps.polyphase_table_2d` gives them.
+    The plan's tiles are within the launcher's largest."""
+    assert up._f2d_smem_bytes(1, 64) == 4 * 138 * 146
+    assert up._f2d_smem_bytes(2, 64) == 4 * 38 * 74
+    assert up._f2d_smem_bytes(1, 36) == 4 * 82 * 146
+    for (u, d), (toh, tow) in up._F2D_TILES.items():
+        assert toh <= up._F2D_MAX_TILE[u][0] and tow <= up._F2D_MAX_TILE[u][1]
+    f = torch.as_tensor(np.random.default_rng(0).standard_normal([12, 12]).astype(np.float32))
+    for pad, start in ((11, 0), (10, 1), (-3, 0), (0, 1)):
+        values, ox, oy, sx, sy = up._f2d_taps(f, 2, (pad, 0, pad - 1, 0), False, 2.0)
+        assert (sx, sy) == (start, 1 - start) and ox == -(pad // 2) and oy == -((pad - 1) // 2)
+        table = np.asarray(values[:196]).reshape(2, 2, 7, 7)
+        corr = f.flip([0, 1]).numpy().astype(np.float64) * 2.0
+        for ey, starts_y in enumerate((0, sy)):
+            for ex, starts_x in enumerate((0, sx)):
+                live = table[ey, ex, starts_y:starts_y + 6, starts_x:starts_x + 6]
+                assert np.count_nonzero(table[ey, ex]) == 36 == np.count_nonzero(live)
+                assert np.isclose(live.sum(), corr[(ey + pad - 1) % 2::2, (ex + pad) % 2::2].sum(),
+                                  rtol=1e-5)
+    values, ox, oy, sx, sy = up._f2d_taps(f, 1, (3, 0, -1, 0), True, 0.5)
+    assert (ox, oy, sx, sy) == (3, -1, 0, 0)
+    np.testing.assert_allclose(np.asarray(values[:144]), f.numpy().ravel() * 0.5, rtol=1e-6)
+    assert not any(values[144:])
 
 
 def test_2d_filter_picks_the_decomposed_route():
