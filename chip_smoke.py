@@ -170,13 +170,28 @@ line.
      in float32 against one process (DP_TOL of their max), the walked w's
      largest difference and the share of coordinates above 1e-3; the
      trainer at phase 9's widths, step-0 losses and every parameter
-     gradient in float32 against one process (DP_TOL), then each phase
+     gradient in float32 against one process (DP_TOL), both step-0
+     comparisons under deterministic cuDNN, then each phase
      twice in bf16 with ADA, random noise and mixing, the replicas
      bit-equal after every step; the projector's command line with
      --n_devices 2 (float32), its step-0 distance against one process;
      FID and precision/recall of the float32 live generator at DP_N_GEN
      images against one process. Per rank: samples/s, peak memory, K1 and
      K2 launches.
+ 19. Tensor parallelism on one card: two ranks on cuda:0 under gloo form a
+     ('data', 'model') = 1 x 2 mesh (a check, not a deployment). The
+     policy with --n_mesh_devices 2 --n_model_devices 2 walks 2 batches
+     of TP_BATCH over phase 3's workspace, each conv layer of G, D and
+     VGG16 computing half its output channels: each rank holds O/2 of
+     every split weight, and K1 and K2 launch on each rank as often as in
+     the one-process walk at the same batch (run after it on rank 0);
+     step-0 loss and w-gradient in float32 under deterministic cuDNN
+     against one process (DP_TOL, TOL_GRAD_WALK of its max, beside the
+     one-process gradient's own spread); the bf16 walked w against the
+     one-process walk's; then phase 4's SG3-T G at batch 2 in float32
+     under the mesh against one process (DP_TOL of its max, K3's launches
+     equal). Per rank: samples/s beside the one-process walk's, peak
+     memory, launches.
 
 Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
 the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
@@ -186,6 +201,7 @@ of stdout are the kernels' JSON record and
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -255,6 +271,9 @@ TOOL_PATIENTS, TOOL_DEPTH, TOOL_POP = 4, 28, 10
 # within DP_TOL of their max; FID within DP_FID_TOL (relative) at DP_N_GEN
 # generated images; the projector's steps; the ranks' time limit.
 DP_TOL, DP_FID_TOL, DP_N_GEN, DP_PROJ_STEPS, DP_TIMEOUT_S = 1e-4, 1e-3, 128, 5, 600
+# Phase 19: each sharded layer's output crosses the host under gloo, so a
+# small batch; its time is recorded, not judged (one card shows no speed-up).
+TP_BATCH, TP_TIMEOUT_S = 4, 300
 # Phase 9's bound on a float32 parameter gradient between two correct
 # implementations (of its max), which phase 18 reads its trainer against.
 TRAIN_TOL_GRAD = 2e-2
@@ -1089,6 +1108,22 @@ def phase_pipeline(torch, counters, slice_rec):
         f"params {trial['params']}, {trial_s:.1f} s")
     return dict(stage_seconds=seconds, metrics=results, launches=launches,
                 trial=dict(trial, seconds=trial_s))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms inside the block. Under the default
+    ones a float32 step 0 does not rerun bit-equal even in one process, and
+    the trainer's path-length loss, a function of G's gradient, once came out
+    1.1e-4 apart between 2 ranks and 1 process on an H100, past DP_TOL; with
+    deterministic algorithms every rerun is bit-equal
+    (scripts/torch_dp_step0_spread.py measures both)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def reset_counters(counters):
@@ -2737,7 +2772,7 @@ def _dp_rank(rank, port, task_path):
     n16 = G.cfg.num_fp16_res
     G.cfg.num_fp16_res = D.cfg.num_fp16_res = 0
     rows = pmesh.shard_rows(BATCH, mesh, D.cfg.mbstd_group_size)
-    with torch.enable_grad():
+    with torch.enable_grad(), cudnn_deterministic(torch):
         wl = rows.take(w).requires_grad_(True)
         total, _ = fns.loss_fn(bundle, wl, crop, None, rows)
         g, = torch.autograd.grad(total, wl)
@@ -2745,7 +2780,7 @@ def _dp_rank(rank, port, task_path):
     step0 = None
     if first:
         def one_process(w_at):
-            with torch.enable_grad():
+            with torch.enable_grad(), cudnn_deterministic(torch):
                 wf = w_at.clone().requires_grad_(True)
                 total1, _ = fns.loss_fn(bundle, wf, crop)
                 return total1.item(), torch.autograd.grad(total1, wf)[0]
@@ -2788,6 +2823,7 @@ def _dp_rank(rank, port, task_path):
     pl_noise = torch.randn([pl_b, 2, RES, RES], generator=gz, device=dev) / RES
     pl_mean = torch.tensor(0.5, device=dev)
 
+    @cudnn_deterministic(torch)
     def phase_values(fns, state, m, z=z, real=real):
         gen = torch.Generator(device=dev).manual_seed(1)
         r = None if m is None else pmesh.shard_rows(BATCH, m, state.D.cfg.mbstd_group_size)
@@ -3055,6 +3091,279 @@ def phase_dp(torch, np, counters, need, slice_rec, dev):
     return dict(nccl_world1_bit_equal=nccl_equal, ranks=ranks, seconds=time.time() - t0)
 
 
+def _tp_rank(rank, port, task_path):
+    """One rank of phase 19 (a 1 x 2 ('data', 'model') mesh on cuda:0
+    under gloo): the tensor-parallel policy walk, its step 0 in float32,
+    the SG3-T G; rank 0 also runs them in one process. Writes
+    rank<r>.json."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import random
+
+    from latentaugment_tpu_torch.augments import create_augment, manifold
+    from latentaugment_tpu_torch.data import create_dataset
+    from latentaugment_tpu_torch.models.stylegan2 import checkpoint
+    from latentaugment_tpu_torch.models.stylegan3 import networks as net3
+    from latentaugment_tpu_torch.ops import bias_act as ba
+    from latentaugment_tpu_torch.ops import filtered_lrelu as fl
+    from latentaugment_tpu_torch.ops import upfirdn2d as up
+    from latentaugment_tpu_torch.options import AugOptions
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+    from latentaugment_tpu_torch.parallel import tensor as ptensor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(task_path) as f:
+        task = json.load(f)
+    globals().update(task["sizes"])  # the parent's sizes (smaller in a CPU rehearsal)
+    dev = torch.device(task["device"])
+    cuda = dev.type == "cuda"
+    pmesh.init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    counters = (ba.launches, up.launches, fl.launches)
+    VARIANT_COUNTERS.update(upfirdn2d=up.variant_launches, filtered_lrelu=fl.variant_launches)
+    first = rank == 0
+    rec = {"rank": rank}
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def walk_policy(extra):
+        """The policy over the first 2 batches: (augment, per-batch records,
+        launches, set-up s, peak memory)."""
+        opt = AugOptions().parse(argv=task["argv"] + ["--device", str(dev)] + extra,
+                                 install_logger=False)
+        reset_counters(counters)
+        peak_reset()
+        t0 = time.time()
+        augment = create_augment(opt)
+        sync()
+        setup_s = time.time() - t0
+        out = []
+        for data in create_dataset(opt):
+            t0 = time.time()
+            augment.set_input(data)
+            augment.forward()
+            o = augment.get_output()
+            sync()
+            out.append(dict(out=o, wall=time.time() - t0, w_in=augment.get_latent_input()["w"],
+                            w_out=augment.get_latent_output()["w"]))
+            if len(out) == 2:
+                break
+        return augment, out, {k: v for c in counters for k, v in c.items()}, setup_s, peak()
+
+    # --- the policy walk on the mesh, then (rank 0) in one process.
+    augment, batches, launches, setup_s, walk_peak = walk_policy(
+        ["--n_mesh_devices", "2", "--n_model_devices", "2"])
+    _, variants = read_counters(counters, "tensor-parallel walk", task["walk_need"])
+    eng = augment.latent_aug
+    mesh = eng.mesh
+    if pmesh.model_axis_size(mesh) != 2 or not eng.tp_split:
+        raise AssertionError(f"rank {rank}: the walk ran on {eng.mesh} splitting {eng.tp_split}")
+    for i, b in enumerate(batches):
+        for k in ("A", "B"):
+            if b["out"][k].shape != (TP_BATCH, 1, RES, RES) or not np.isfinite(b["out"][k]).all():
+                raise AssertionError(f"rank {rank}: tensor-parallel walk batch {i} {k}: "
+                                     f"{b['out'][k].shape}")
+    rec["walk"] = dict(walls=[b["wall"] for b in batches], setup_s=setup_s,
+                       samples_per_s=TP_BATCH / batches[1]["wall"], launches=launches,
+                       variant_launches=variants, peak_mem_bytes=walk_peak,
+                       n_split=len(eng.tp_split))
+
+    # Step 0 (float32, TF32 off): loss and gradient at w on the mesh.
+    fns, bundle = eng._fns, eng._bundle
+    G, D = bundle["G"], bundle["D"]
+    split_shapes = {n: tuple(split_param(bundle, n).shape) for n in eng.tp_split}
+    w = torch.as_tensor(batches[0]["w_in"][:, None, :], device=dev)
+    crop = manifold.get_params(eng.res, eng.crop_size, eng.preprocess,
+                               rng=random.Random(19))["crop_pos"]
+    n16 = G.cfg.num_fp16_res
+    G.cfg.num_fp16_res = D.cfg.num_fp16_res = 0
+    rows = pmesh.shard_rows(TP_BATCH, mesh, D.cfg.mbstd_group_size)
+    with torch.enable_grad(), cudnn_deterministic(torch):
+        wl = rows.take(w).requires_grad_(True)
+        total, _ = fns.loss_fn(bundle, wl, crop, None, rows)
+        g, = torch.autograd.grad(total, wl)
+    loss_tp, grad_tp = rows.sum(total.detach()).item(), rows.gather(g)
+    G.cfg.num_fp16_res = D.cfg.num_fp16_res = n16
+    # The slices gathered back: the one-process G and D (every rank).
+    ptensor.gather_from_model(G)
+    ptensor.gather_from_model(D)
+    whole = dict(bundle, vgg=eng.vgg_params)
+    full_shapes = {n: tuple(split_param(whole, n).shape) for n in eng.tp_split}
+    halves = all(split_shapes[n] == (full_shapes[n][0] // 2, *full_shapes[n][1:])
+                 and full_shapes[n][0] % 2 == 0 for n in eng.tp_split)
+    rec["walk"].update(holds_half_of_every_split_weight=halves)
+    dist.barrier()
+    step0 = walked = one = None
+    if first:
+        G.cfg.num_fp16_res = D.cfg.num_fp16_res = 0
+
+        def one_process(w_at):
+            with torch.enable_grad(), cudnn_deterministic(torch):
+                wf = w_at.clone().requires_grad_(True)
+                total1, _ = fns.loss_fn(whole, wf, crop)
+                return total1.item(), torch.autograd.grad(total1, wf)[0]
+
+        loss1, g1 = one_process(w)
+        _, g1n = one_process(torch.nextafter(w, torch.full_like(w, math.inf)))
+        G.cfg.num_fp16_res = D.cfg.num_fp16_res = n16
+        scale = g1.abs().max()
+        step0 = dict(loss_tp=loss_tp, loss_1proc=loss1,
+                     grad_err_of_max=((grad_tp - g1).abs().max() / scale).item(),
+                     grad_spread_one_step=((g1n - g1).abs().max() / scale).item())
+        del augment, eng, fns, bundle, whole, G, D
+        free()
+        augment, ref, ref_launches, _, ref_peak = walk_policy([])
+        read_counters(counters, "one-process walk", task["walk_need"])
+        for a, b in zip(batches, ref):
+            np.testing.assert_array_equal(a["w_in"], b["w_in"])
+        diff = np.abs(batches[0]["w_out"] - ref[0]["w_out"])
+        walked = dict(w_max_diff=float(diff.max()), w_share_above_1e3=float((diff > 1e-3).mean()))
+        one = dict(walls=[b["wall"] for b in ref], samples_per_s=TP_BATCH / ref[1]["wall"],
+                   launches=ref_launches, peak_mem_bytes=ref_peak)
+        del ref
+    rec["walk"].update(step0=step0, walked=walked, one_process=one)
+    del augment, batches
+    free()
+    dist.barrier()
+
+    # --- phase 4's SG3-T G at batch 2, float32, on the mesh, then gathered
+    # back into the one-process G.
+    g_params, g_cfg, _, _ = checkpoint.load_stylegan(task["sg3_ckpt"])
+    g_cfg.num_fp16_res = 0
+    G3 = net3.Generator(g_cfg)
+    G3.load_state_dict(checkpoint.params_to_state_dict(g_params))
+    G3 = G3.to(dev).eval().requires_grad_(False)
+    z = torch.randn([2, g_cfg.z_dim], generator=torch.Generator().manual_seed(19)).to(dev)
+    split3 = ptensor.shard_for_model(G3, mesh)
+    reset_counters(counters)
+    with torch.no_grad():
+        img_tp = G3(z)
+    sync()
+    l_tp, _ = read_counters(counters, "tensor-parallel SG3-T G", task["sg3_need"])
+    ptensor.gather_from_model(G3)
+    sg3 = dict(launches=l_tp, n_split=len(split3))
+    if first:
+        reset_counters(counters)
+        with torch.no_grad():
+            img1 = G3(z)
+        sync()
+        l1, _ = read_counters(counters, "one-process SG3-T G", task["sg3_need"])
+        sg3.update(launches_1proc=l1, err_of_max=((img_tp - img1).abs().max()
+                                                  / img1.abs().max()).item(),
+                   finite=bool(torch.isfinite(img_tp).all()))
+    rec["sg3"] = sg3
+    dist.barrier()
+    with open(os.path.join(task["root"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def split_param(bundle, name):
+    """The tensor of a split name of parallel/tensor.shard_bundle ('G.x.weight',
+    'vgg.conv1_1.weight') in `bundle`."""
+    key, rest = name.split(".", 1)
+    if key == "vgg":
+        layer, leaf = rest.rsplit(".", 1)
+        return bundle["vgg"][layer][leaf]
+    return bundle[key].get_parameter(rest)
+
+
+def phase_tp(torch, np, need, slice_rec, sg3_rec, dev):
+    """Tensor parallelism on one card: two ranks on cuda:0 under gloo
+    form a 1 x 2 ('data', 'model') mesh (a check, not a deployment) for
+    the SG2 policy walk and the SG3-T G, each against one process."""
+    import multiprocessing
+
+    from latentaugment_tpu_torch.parallel import mesh as pmesh
+
+    log(f"phase 19: tensor parallelism on one card (a 1 x 2 ('data', 'model') mesh, 2 ranks "
+        f"under gloo, batch {TP_BATCH})")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share this card with this process
+    root = os.path.join(REPO, "build", "chip_smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    argv = list(slice_rec["argv"])
+    argv[argv.index("--batch_size") + 1] = str(TP_BATCH)
+    sg3_argv = sg3_rec["argv"]
+    task = dict(root=root, argv=argv, device=str(dev), walk_need=need,
+                sg3_ckpt=sg3_argv[sg3_argv.index("--model_dir") + 1],
+                sg3_need=["filtered_lrelu_fwd"] if need else [],
+                sizes=dict(RES=RES, TP_BATCH=TP_BATCH, WIDTHS=WIDTHS))
+    task_path = os.path.join(root, "task.json")
+    with open(task_path, "w") as f:
+        json.dump(task, f)
+    ctx = multiprocessing.get_context("spawn")
+    port = pmesh.free_port()
+    t0 = time.time()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, task_path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=TP_TIMEOUT_S - (time.time() - t0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 19: rank exit codes {[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    s0, one, sg3 = r0["walk"]["step0"], r0["walk"]["one_process"], r0["sg3"]
+    if abs(s0["loss_tp"] - s0["loss_1proc"]) > DP_TOL * abs(s0["loss_1proc"]) \
+            or s0["grad_err_of_max"] > TOL_GRAD_WALK:
+        raise AssertionError(f"tensor-parallel walk, step 0 (float32): {s0}")
+    if sg3["err_of_max"] > DP_TOL or not sg3["finite"]:
+        raise AssertionError(f"tensor-parallel SG3-T G (float32): {sg3}")
+    for r in ranks:
+        if not r["walk"]["holds_half_of_every_split_weight"]:
+            raise AssertionError(f"rank {r['rank']}: a split weight is not half the whole")
+        for kernel in need:
+            if r["walk"]["launches"][kernel] != one["launches"][kernel]:
+                raise AssertionError(f"rank {r['rank']}: {kernel} launched "
+                                     f"{r['walk']['launches'][kernel]} times on the mesh, "
+                                     f"{one['launches'][kernel]} in one process")
+        if r["sg3"]["launches"] != sg3["launches_1proc"]:
+            raise AssertionError(f"rank {r['rank']}: SG3-T G launches {r['sg3']['launches']}, "
+                                 f"one process {sg3['launches_1proc']}")
+    for r in ranks:
+        log(f"  rank {r['rank']}: walk {r['walk']['samples_per_s']:.3f} samples/s (batch "
+            f"{TP_BATCH}, second batch, walls {[round(x, 3) for x in r['walk']['walls']]} s), "
+            f"peak {r['walk']['peak_mem_bytes'] / 2**30:.2f} GiB, {r['walk']['n_split']} weights "
+            f"split in half, launches over 2 batches {r['walk']['launches']}; SG3-T G launches "
+            f"{r['sg3']['launches']} ({r['sg3']['n_split']} weights split)")
+    log(f"  one process at batch {TP_BATCH}: walk {one['samples_per_s']:.3f} samples/s (walls "
+        f"{[round(x, 3) for x in one['walls']]} s), peak {one['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"launches {one['launches']}")
+    log(f"  step 0 of the walk (float32), 2 model ranks vs 1 process: {s0}; walked w (bf16 top "
+        f"blocks): {r0['walk']['walked']}; SG3-T G (float32) err / max {sg3['err_of_max']:.3e}")
+    return dict(ranks=ranks, seconds=time.time() - t0)
+
+
 def main():
     import torch
 
@@ -3134,6 +3443,7 @@ def main():
     sg2_counters = (ba.launches, up.launches)
     tools_rec = timed("17", phase_tools, torch, np, sg2_counters, sg2_need, slice_rec, dev)
     dp_rec = timed("18", phase_dp, torch, np, sg2_counters, sg2_need, slice_rec, dev)
+    tp_rec = timed("19", phase_tp, torch, np, sg2_need, slice_rec, sg3_rec, dev)
     paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
              "metrics": metrics_rec, "train": train_rec,
@@ -3148,7 +3458,9 @@ def main():
              **{f"dp_walk_rank{r['rank']}": r["walk"] for r in dp_rec["ranks"]},
              **{f"dp_train_rank{r['rank']}": r["train"] for r in dp_rec["ranks"]},
              **{f"dp_projector_rank{r['rank']}": r["projector"] for r in dp_rec["ranks"]},
-             **{f"dp_metrics_rank{r['rank']}": r["metrics"] for r in dp_rec["ranks"]}}
+             **{f"dp_metrics_rank{r['rank']}": r["metrics"] for r in dp_rec["ranks"]},
+             **{f"tp_walk_rank{r['rank']}": r["walk"] for r in tp_rec["ranks"]},
+             **{f"tp_sg3_g_rank{r['rank']}": r["sg3"] for r in tp_rec["ranks"]}}
 
     def main_rec(recs, name, dtype):
         return next(r for r in recs if r["case"] == name and r["dtype"] == dtype)
@@ -3241,6 +3553,7 @@ def main():
                    "drivers": drivers_rec, "pipeline": pipeline_rec,
                    "sustained_train": sustained_rec, "export": export_rec,
                    "pix2pix": pix2pix_rec, "tools": tools_rec, "data_parallel": dp_rec,
+                   "tensor_parallel": tp_rec,
                    "phase_seconds": phase_s,
                    "seconds": time.time() - t_start,
                    "kernels": kernels}, f,

@@ -29,6 +29,14 @@ size: no collective inside the K steps); where they do not, D's epilogue
 gathers its input across the ranks once per step. The final synthesis draws its noise
 for the global batch and takes its rows, and the loss traces are summed
 across ranks once per walk. Each rank runs its own kernels.
+
+Tensor parallelism (a mesh with a 'model' axis, get_mesh(n, n_model=m)):
+the batch splits over the data axis only, and G, D and the VGG16 split
+each conv layer's output channels over the model group
+(parallel/tensor.py, the JAX package's `tp_tree_shardings` rule), so
+every kernel of a split layer runs on its C/m channels. The loss traces
+and batch means stay summed over the data axis; the m ranks of a model
+group walk the same rows and return the same global result.
 """
 
 import json
@@ -44,6 +52,7 @@ from ..models import networks_for, vgg
 from ..models.stylegan2 import checkpoint, networks
 from ..ops.adam import adam_step as _adam_update
 from ..parallel import mesh as pmesh
+from ..parallel import tensor as ptensor
 from ..utils import util_general, util_path
 from ..utils.util_easydict import EasyDict
 from ..utils.util_general import resolve_device  # noqa: F401 (re-exported)
@@ -240,7 +249,7 @@ class LatentAugEngine:
     """Holds G/D/VGG + manifold summaries + the walk functions."""
 
     def __init__(self, phase, opt, save_dir, device, mesh=None):
-        self.mesh = pmesh.check_mesh(mesh)
+        self.mesh = pmesh.check_mesh(mesh, model_axis=True)
         self.save_dir = save_dir
         self.model_dir = opt.model_dir
         self.interim_dir = opt.interim_dir
@@ -354,6 +363,18 @@ class LatentAugEngine:
             self.G, self.D, self.vgg_params, W_summary=self.W_summary,
             X_cc_summaries=self.X_cc_summaries, fea_summaries=self.fea_summaries,
             lpips_lin=self.lpips_lin)
+        # The names of the parameters split over the mesh's model axis.
+        self.tp_split = []
+        if self.mesh is not None and pmesh.model_axis_size(self.mesh) > 1:
+            self._bundle, self.tp_split = ptensor.shard_bundle(self._bundle, self.mesh)
+            if not self.tp_split:
+                # Every rank of a model group would then do the same work
+                # while the caller believes the run is tensor-parallel.
+                raise ValueError(
+                    f"tensor parallelism requested (model axis "
+                    f"{pmesh.model_axis_size(self.mesh)}) but no conv weight's output "
+                    "channel count is a multiple of it: the run would be redundant; lower "
+                    "n_model_devices")
 
     def _remat_setting(self, opt):
         """Per-block remat unless the options set it: on when G runs all in
@@ -609,9 +630,9 @@ class LatentAugEngine:
         if self.mesh is None:
             return self._compute_stats(dataset, manifold_name, cache_file, cache_tag,
                                        num_items, step, mode_id)
-        # Under a mesh rank 0 builds (or finds) the cache file, and the
-        # others read it once it is written.
-        if pmesh.data_rank(self.mesh) == 0:
+        # Under a mesh its first rank builds (or finds) the cache file, and
+        # the others read it once it is written.
+        if pmesh.is_lead(self.mesh):
             stats = self._compute_stats(dataset, manifold_name, cache_file, cache_tag,
                                         num_items, step, mode_id)
             pmesh.barrier(self.mesh)

@@ -10,8 +10,10 @@ the API boundary (NCHW float32); the engine moves it to `--device`.
 nothing. `--n_mesh_devices N` (N > 1) walks data-parallel over N ranks,
 one process per device (started by torchrun, or joined before the policy
 is made): each rank walks its rows of the global batch and every rank
-gets the global output. `--n_model_devices` above 1 (tensor parallelism)
-raises: it is not ported yet.
+gets the global output. `--n_model_devices M` (M > 1) with it lays the
+N ranks out as an (N / M) x M ('data', 'model') mesh: the batch splits
+over N / M data ranks and each conv layer's output channels over the M
+ranks of a model group (tensor parallelism, parallel/tensor.py).
 """
 
 import os
@@ -57,8 +59,8 @@ class LatentAugment(BaseAugment):
         parser.add_argument('--device', type=str, default='cuda', help='torch device of the walk (cuda, cuda:N or cpu); cuda without CUDA raises')
         parser.add_argument('--impl', type=str, default='auto', choices=['auto', 'ref'], help="ops: 'auto' runs the hand-written kernels on CUDA, 'ref' the plain PyTorch versions")
         parser.add_argument('--gpu_ids_aug', type=str, default='0', help='kept for command-line compatibility; --device selects the device')
-        parser.add_argument('--n_mesh_devices', type=int, default=0, help='shard the batch over this many ranks, one process per device (0 = single device); the process group must hold exactly this many (torchrun --nproc_per_node N)')
-        parser.add_argument('--n_model_devices', type=int, default=0, help='tensor parallelism over this many devices (more than 1 is not ported yet and raises)')
+        parser.add_argument('--n_mesh_devices', type=int, default=0, help='walk over this many ranks, one process per device (0 = single device); the batch splits over them, or over N / --n_model_devices of them; the process group must hold exactly this many (torchrun --nproc_per_node N)')
+        parser.add_argument('--n_model_devices', type=int, default=0, help='tensor parallelism: split each conv layer\'s output channels over this many of the --n_mesh_devices ranks (0 or 1 = none); it must divide --n_mesh_devices')
 
         # Common dataset options.
         parser.add_argument('--dataset_aug', help='', metavar='DIR', default="Pelvis_2.1_repo_no_mask")
@@ -101,17 +103,21 @@ class LatentAugment(BaseAugment):
         return parser
 
     def __init__(self, opt):
-        if (getattr(opt, 'n_model_devices', 0) or 0) > 1:
-            raise NotImplementedError(pmesh.TENSOR_PARALLEL)
         BaseAugment.__init__(self, opt)
         self.device = engine_mod.resolve_device(opt.device)
         self.mesh = None
         n_mesh = getattr(opt, 'n_mesh_devices', 0) or 0
+        n_model = getattr(opt, 'n_model_devices', 0) or 1
+        if opt.phase == 'train' and n_model > 1 and n_mesh <= 1:
+            raise ValueError(
+                f"--n_model_devices {n_model} requires --n_mesh_devices (the total rank count "
+                "the ('data', 'model') mesh is built from); without it the tensor-parallel "
+                "request would be dropped")
         if n_mesh > 1 and opt.phase == 'train':
             if not dist.is_initialized():
                 pmesh.init_distributed(backend=pmesh.backend_for(self.device))
             self.device = pmesh.rank_device(opt.device)
-            self.mesh = pmesh.get_mesh(n_mesh, devices=self.device)
+            self.mesh = pmesh.get_mesh(n_mesh, devices=self.device, n_model=n_model)
         self.phase = opt.phase
         self.batch_size = opt.batch_size
         self.rand_aug = opt.rand_aug

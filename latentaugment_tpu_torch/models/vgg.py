@@ -3,7 +3,9 @@
 
 Params: {'convX_Y': {'weight', 'bias'}, 'lin': {tap: [C]}, and for the
 metric detector 'fc6' / 'fc7': {'weight', 'bias'}} — the same nested
-layout the JAX package pickles, so one numpy pickle feeds both.
+layout the JAX package pickles, so one numpy pickle feeds both. Under
+tensor parallelism a conv's entry holds this rank's output channels and
+its `ModelShard` under 'tp' (parallel/tensor.py `shard_params`).
 
 `lpips_features` returns, per image, the concatenation over the tap
 layers of channel-unit-normalized activations scaled by
@@ -100,7 +102,11 @@ def vgg_features(params, x, plan=VGG16_PLAN, taps=None, input_range="0_255"):
             continue
         name, _ = item
         p = params[name]
-        x = F.relu(F.conv2d(x, p["weight"].to(x.dtype), p["bias"].to(x.dtype), padding=1))
+        tp = p.get("tp")  # a layer split over a model axis (parallel/tensor.py)
+        x_in = x if tp is None else tp.enter(x)
+        x = F.relu(F.conv2d(x_in, p["weight"].to(x.dtype), p["bias"].to(x.dtype), padding=1))
+        if tp is not None:
+            x = tp.gather(x)
         if name in want:
             out[name] = x
             if len(out) == len(want):

@@ -34,8 +34,18 @@ rank per card in production; gloo on the CPU, and for two ranks on one
 card (a check, not a deployment: NCCL refuses two ranks on one device),
 where gloo runs all_reduce, broadcast and all_gather on the card's
 tensors through host memory itself (chip_smoke phase 18 probes which
-collectives it takes). Tensor parallelism (`n_model > 1`, the JAX
-package's 'model' axis) is not ported yet and raises.
+collectives it takes).
+
+Tensor parallelism adds a 'model' axis: `get_mesh(n, n_model=m)` lays
+the ranks out as a (n / m) x m ('data', 'model') mesh, the model axis
+innermost as in the JAX package. The batch splits over the data axis
+only: every helper here that carries the batch (`data_group`,
+`world_size`, `data_rank`, `mesh_ranks`, hence `shard_rows` and `Rows`)
+sees the data axis through this rank, and the m ranks of a model group
+hold the same rows. parallel/tensor.py splits each conv layer's output
+channels over the model group. Only the walk engine takes such a mesh
+(`check_mesh(mesh, model_axis=True)`); the trainer, the projector and
+the metrics shard only the batch and refuse it.
 """
 
 import datetime
@@ -45,10 +55,6 @@ import socket
 import numpy as np
 import torch
 import torch.distributed as dist
-
-TENSOR_PARALLEL = ("tensor parallelism (n_model > 1, the 'model' axis of the JAX package's "
-                   "parallel/mesh.py:100-133) is the port's next slice and is not ported yet")
-
 
 def backend_for(device):
     """The collective backend for ranks on `device`: nccl on CUDA, gloo
@@ -94,24 +100,33 @@ def rank_device(name="cuda"):
 
 
 def get_mesh(n_devices=None, devices=None, n_model=1):
-    """A 1-D DeviceMesh with the dim name 'data' over the process group's
-    ranks. `devices` lists one device per rank (e.g. ['cuda:0', 'cuda:0']
-    places two ranks on one card) or names this rank's; by default each
-    rank takes `rank_device()`. The data axis spans every rank: `n_devices` must be
-    the world size."""
+    """A DeviceMesh over the process group's ranks: 1-D with the dim name
+    'data', or with n_model > 1 a ('data', 'model') mesh whose ranks are
+    arange(world).reshape(world // n_model, n_model) (the model axis
+    innermost, as in the JAX package). `devices` lists one device per rank
+    (e.g. ['cuda:0', 'cuda:0'] places two ranks on one card) or names this
+    rank's; by default each rank takes `rank_device()`. The mesh spans
+    every rank: `n_devices` must be the world size, and n_model must
+    divide it."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if n_model and n_model > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
+    n_model = int(n_model or 1)
+    if n_model > 1 and n_devices is not None and int(n_devices) % n_model:
+        raise ValueError(f"n_model={n_model} must divide the device count {n_devices}")
     if not dist.is_initialized():
         raise RuntimeError("get_mesh needs the process group: call init_distributed first "
                            "(or start under torchrun)")
     world = dist.get_world_size()
     if n_devices is not None and int(n_devices) != world:
-        raise ValueError(f"a data axis of {n_devices} ranks, but the process group has "
+        raise ValueError(f"a mesh of {n_devices} ranks, but the process group has "
                          f"{world}: start one process per device")
     device = _this_device(devices)
-    return DeviceMesh(device.type, list(range(world)), mesh_dim_names=("data",))
+    if n_model == 1:
+        return DeviceMesh(device.type, list(range(world)), mesh_dim_names=("data",))
+    if world % n_model:
+        raise ValueError(f"n_model={n_model} must divide the device count {world}")
+    ranks = np.arange(world).reshape(world // n_model, n_model).tolist()
+    return DeviceMesh(device.type, ranks, mesh_dim_names=("data", "model"))
 
 
 def get_hybrid_mesh(n_slices, per_slice=None, devices=None):
@@ -148,9 +163,10 @@ def _this_device(devices):
     return device
 
 
-def check_mesh(mesh):
+def check_mesh(mesh, model_axis=False):
     """`mesh` as the port's parallel paths take it: None (one process) or
-    a DeviceMesh whose axes carry the batch; a 'model' axis raises."""
+    a DeviceMesh whose axes carry the batch, and, where `model_axis`
+    (the walk engine), a 'model' axis besides."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if mesh is None:
@@ -158,8 +174,10 @@ def check_mesh(mesh):
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch DeviceMesh (parallel.mesh.get_mesh), "
                         f"got {type(mesh).__name__}")
-    if "model" in (mesh.mesh_dim_names or ()):
-        raise NotImplementedError(TENSOR_PARALLEL)
+    if has_model_axis(mesh) and not model_axis:
+        raise ValueError("this path shards only the batch, as the JAX package's does "
+                         "(batch_sharding): tensor parallelism (a 'model' axis) runs in "
+                         "the walk engine only; build its mesh with n_model=1")
     return mesh
 
 
@@ -192,24 +210,63 @@ def run_on_ranks(fn, n, device, *args):
     return None
 
 
+def has_model_axis(mesh):
+    return "model" in (mesh.mesh_dim_names or ())
+
+
+def model_axis_size(mesh):
+    """The size of the mesh's 'model' axis (1 without one)."""
+    return int(mesh.size(mesh.mesh_dim_names.index("model"))) if has_model_axis(mesh) else 1
+
+
+def model_group(mesh):
+    """The process group of this rank's model group: the ranks that split
+    each sharded layer's output channels and hold the same rows."""
+    return mesh.get_group("model")
+
+
+def model_rank(mesh):
+    """This rank's position on the mesh's 'model' axis (0 without one)."""
+    return int(mesh.get_local_rank("model")) if has_model_axis(mesh) else 0
+
+
 def mesh_ranks(mesh):
-    """The global ranks of the mesh, in batch order (the flattened mesh)."""
+    """The global ranks of the mesh's batch axis, in batch order: the
+    flattened mesh, or under a 'model' axis the data axis through this
+    rank."""
+    if has_model_axis(mesh):
+        return [int(r) for r in mesh.mesh[:, model_rank(mesh)].tolist()]
     return [int(r) for r in mesh.mesh.flatten().tolist()]
 
 
-def data_group(mesh):
-    """The process group that carries the batch: the 'data' dim of a 1-D
-    mesh, the whole group under a 2-D one (which spans every rank)."""
+def mesh_group(mesh):
+    """The group of every rank of the mesh: the dim of a 1-D mesh, the
+    whole group under a 2-D one (get_mesh and get_hybrid_mesh span every
+    rank)."""
     return mesh.get_group(0) if mesh.ndim == 1 else dist.group.WORLD
 
 
+def data_group(mesh):
+    """The process group that carries the batch: the 'data' dim through
+    this rank under a 'model' axis, else every rank of the mesh (a
+    ('dcn', 'data') mesh shards the batch over both)."""
+    return mesh.get_group("data") if has_model_axis(mesh) else mesh_group(mesh)
+
+
 def world_size(mesh):
-    return int(mesh.mesh.numel())
+    """The number of ranks the batch splits over."""
+    return len(mesh_ranks(mesh))
 
 
 def data_rank(mesh):
     """This rank's position on the mesh's batch axis."""
     return mesh_ranks(mesh).index(dist.get_rank())
+
+
+def is_lead(mesh):
+    """Whether this rank is the mesh's first (the one that writes files
+    every rank reads)."""
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
 
 
 def all_sum(t, mesh):
@@ -230,7 +287,8 @@ def all_gather(t, mesh):
 
 
 def barrier(mesh):
-    dist.barrier(group=data_group(mesh))
+    """Wait for every rank of the mesh."""
+    dist.barrier(group=mesh_group(mesh))
 
 
 def broadcast_module(module, mesh, src=0):

@@ -1020,7 +1020,7 @@ def test_init_distributed_reads_torchruns_environment_and_refusals():
                        timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "GROUP (0, 1)" in r.stdout and "MESH ('data',) 1 0" in r.stdout
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        pmesh.get_mesh(n_model=2)
+    with pytest.raises(ValueError, match="must divide"):
+        pmesh.get_mesh(4, n_model=3)
     with pytest.raises(TypeError, match="DeviceMesh"):
         pmesh.check_mesh(object())

@@ -513,10 +513,11 @@ def test_jax_compatibility_flags_parse(tmp_path):
     """The JAX command line's --gpu_ids, --verbose, --suffix and
     --gpu_ids_aug parse as there (gpu_ids: the same list of ints, which
     selects nothing); --n_mesh_devices / --n_model_devices parse. Above 1,
-    --n_model_devices raises, naming tensor parallelism (not ported), and
-    --n_mesh_devices without a process group of that size raises instead
-    of walking on one process (tests/test_torch_port_parallel.py walks it
-    over two ranks)."""
+    --n_model_devices without --n_mesh_devices raises a ValueError naming
+    it, as the JAX policy does (tests/test_torch_port_tensor_parallel.py
+    walks both over four ranks), and --n_mesh_devices without a process
+    group of that size raises instead of walking on one process
+    (tests/test_torch_port_parallel.py walks it over two ranks)."""
     argv = _BASE + _LATENT + ["--checkpoints_dir", str(tmp_path), "--gpu_ids", "0,1",
                               "--verbose", "--suffix", "_run", "--gpu_ids_aug", "1",
                               "--n_mesh_devices", "1", "--n_model_devices", "0"]
@@ -526,7 +527,7 @@ def test_jax_compatibility_flags_parse(tmp_path):
         assert getattr(opt_t, k) == getattr(opt_j, k), k
     assert opt_t.gpu_ids == [0, 1] and opt_t.verbose is True
     for flag, err, match in (("--n_mesh_devices", RuntimeError, "torchrun"),
-                             ("--n_model_devices", NotImplementedError, "tensor parallelism")):
+                             ("--n_model_devices", ValueError, "n_mesh_devices")):
         opt = AugOptions_t().parse(argv=argv + [flag, "2", "--device", "cpu"],
                                    install_logger=False)
         with pytest.raises(err, match=match):
