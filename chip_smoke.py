@@ -193,8 +193,22 @@ line.
      equal). Per rank: samples/s beside the one-process walk's, peak
      memory, launches.
 
-Phase 1c differentiates K1 and K2 twice, as R1 and path length do, at
-the trainer's shapes (1e-5 of max |plain| in float32, 2e-2 in bfloat16).
+Phase 1c differentiates K1, K2 and K3 twice, as R1 and path length do,
+at the trainer's and the SG3-T walk's shapes (1e-5 of max |plain| in
+float32, 2e-2 in bfloat16): K1's rectifiers (the backward kernel again)
+and its six smooth activations (its third kernel), K2 (itself again), K3
+at L10, L8 and toRGB (its linearised forward, the backward's
+derivative, held at the plain version's record as phase 1b holds the
+backward, and equal to autograd's at K3's own); K1's third kernel and
+K3's linearised forward alone against their plain versions, timed with
+their bounds; filter gradients through K2 (the G blur) and K3 (L8).
+Phase 1d differentiates the SG3-T generator twice (path length's
+pattern) at full width, batch SG3_PL_BATCH (against the plain versions
+at SG3_PL_PLAIN_BATCH on the same widths cut to SG3_PL_PLAIN_LAYERS
+layers): every weight's gradient in float32 under deterministic cuDNN
+within TRAIN_TOL_GRAD, bf16 recorded; K3's forward once per layer, its linearised forward once
+per layer but toRGB (whose cotangent is the constant noise), never
+`generic`.
 No launch of any phase's main path may go through a kernel's `generic`
 variant; phase 11 must launch K2's `sepn` and `f2d`. The last two lines
 of stdout are the kernels' JSON record and
@@ -229,6 +243,19 @@ SQRT_HALF = math.sqrt(0.5)
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 BATCH, RES, N_BATCHES = 32, 256, 3
 SG3_BATCH = 16
+# Phase 1d: the SG3-T generator differentiated twice (path length) at this
+# batch, the penalty's pl_mean.
+SG3_PL_BATCH, PL_MEAN = 4, 0.5
+# and against the plain versions at this batch, on the same widths cut to
+# this many layers (the plain double backward takes 55 s for the whole G
+# at batch 1 on an H100).
+SG3_PL_PLAIN_BATCH, SG3_PL_PLAIN_LAYERS = 1, 6
+# Phase 1c holds K3's second derivative to the plain one on this many
+# samples of each case (the kernels run and are timed at the full batch).
+K3_PLAIN_ROWS = 1
+# Launched by second derivatives only: none of the walk's, the projector's
+# or the metrics' paths launches them.
+SECOND_ORDER = ("bias_act_bwd2", "bias_act_grad2", "filtered_lrelu_lin")
 PROJ_BATCH, PROJ_STEPS = 16, 20          # the projector on StyleGAN2
 PROJ_SG3_BATCH, PROJ_SG3_STEPS = 8, 5    # and on the SG3-T checkpoint
 N_GEN = 512                              # generated images of the metrics
@@ -253,7 +280,7 @@ SG3R_G_BATCH, SG3R_BATCHES = 2, (16, 8, 4)
 SG3R_TOL_IMG, SG3R_TOL_GRAD = 1e-4, 1e-3
 # Phase 13, the pipeline: images walked and scored, projector steps, and
 # the images of the one tuning trial.
-PIPE_N_IMGS, PIPE_PROJECT_STEPS, PIPE_TRIAL_IMGS = 512, 5, 64
+PIPE_N_IMGS, PIPE_PROJECT_STEPS, PIPE_TRIAL_IMGS = 256, 5, 64
 # Phase 14: sustained training at the JAX run's operating point (its
 # artifacts/sustained_train_r4 covered 10.016 kimg in 32 log rows).
 SUSTAINED_KIMG = 10
@@ -485,85 +512,459 @@ def phase_kernels(torch, ba, up, dev):
 
 def second_order(torch, fn, x, dy1, dy2):
     """R1's and path length's pattern: g = d<fn(x), dy1>/dx with its graph,
-    then d<g, dy2>/d dy1 (d/dx is zero for these piecewise-linear ops and
-    autograd gives none). Returns (g, d/d dy1)."""
+    then d<g, dy2>/d(x, dy1). Returns (g, d/d dy1, d/dx); d/dx as zeros
+    where autograd gives none (it is zero for the piecewise-linear ops,
+    not for the smooth activations)."""
     xg, d1 = x.detach().requires_grad_(True), dy1.detach().requires_grad_(True)
     g, = torch.autograd.grad(fn(xg), xg, d1, create_graph=True)
     gx, gdy = torch.autograd.grad(g, (xg, d1), dy2, allow_unused=True)
-    if gx is not None and gx.any():
-        raise AssertionError("a second derivative with respect to x appeared")
-    return g.detach(), gdy
+    return g.detach(), gdy, torch.zeros_like(xg) if gx is None else gx
 
 
-def phase_second_order(torch, ba, up, dev):
-    """K1 and K2 differentiated twice, as R1 and path length do, at the
-    trainer's shapes: kernels (impl='auto') and plain (impl='ref') on the
-    same tensors, with each side's time (forward, backward with its graph
-    and the second backward; CUDA events: the kernels' median of 10, the
-    plain side once)."""
-    log("phase 1c: second derivatives through K1 and K2 vs plain PyTorch")
+def launch_snapshot(counters):
+    """Launches by kernel, and by variant as '<kernel>/<variant>'."""
+    snap = {k: v for c in counters for k, v in c.items()}
+    for name, c in VARIANT_COUNTERS.items():
+        snap.update({f"{name}/{k}": v for k, v in c.items()})
+    return snap
+
+
+def launched_since(counters, before):
+    """The non-zero launch counts since `before` (launch_snapshot)."""
+    now = launch_snapshot(counters)
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+SMOOTH_ACTS = ("tanh", "sigmoid", "elu", "selu", "softplus", "swish")
+
+
+def phase_second_order(torch, ba, up, fl, net3, dev):
+    """K1, K2 and K3 differentiated twice, as R1 and path length do, at the
+    trainer's and the StyleGAN3 walk's shapes: kernels (impl='auto') and
+    plain (impl='ref') on the same tensors, with each side's time
+    (forward, backward with its graph and the second backward; CUDA
+    events: the kernels' median of 10, the plain side once); the two
+    second-order kernels (K1's smooth activations, K3's
+    linearised forward) alone against their plain versions, timed, with
+    their bounds; then filter gradients through K2 and K3."""
+    log("phase 1c: second derivatives and filter gradients through K1, K2 and K3 vs plain "
+        "PyTorch")
     bf16, f32 = torch.bfloat16, torch.float32
     names = {f32: "float32", bf16: "bfloat16"}
+    counters = (ba.launches, up.launches, fl.launches)
     g = torch.Generator(device=dev).manual_seed(21)
     f = up.setup_filter([1, 3, 3, 1], device=dev, separable=True)
     shape = [BATCH, 128, RES, RES]
     b = torch.randn([128], generator=g, device=dev)
-    # (name, dtype, function, (kernel, variants), K2's arguments for its bound)
+    k1_first = {"bias_act_fwd": 1, "bias_act_bwd": 1}
+
+    def k1_bound(passes):
+        return lambda x: (passes * x.numel() * x.element_size(), 0)
+
+    def k2_bound(k2_args):
+        # Three launches, each the forward's bytes and multiply-adds.
+        def bound(x):
+            w = up.work(list(x.shape), f.shape, itemsize=x.element_size(), **k2_args)
+            return 3 * w["bytes"], 3 * w["macs"]
+        return bound
+
+    # (name, dtype, function, its launches, bound's (bytes, multiply-adds))
+    # K1 moves x, y (forward), dy, y, dx (backward) and dy2, y, d/d dy (the
+    # rectifiers' relaunch): 8 element passes; a smooth activation with the
+    # clamp 2 + 4 (dy, x, y in, dx out) + 6 (ddx, dy, x, y in, ddy, dv out).
     cases = [
         ("G conv 256x256 lrelu clamp", f32, lambda x, impl: ba.bias_act(
-            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl), ("bias_act", None), None),
+            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl),
+         dict(k1_first, bias_act_bwd2=1), k1_bound(8)),
         ("G conv 256x256 lrelu clamp", bf16, lambda x, impl: ba.bias_act(
-            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl), ("bias_act", None), None),
+            x, b.to(x.dtype), act="lrelu", clamp=256, impl=impl),
+         dict(k1_first, bias_act_bwd2=1), k1_bound(8)),
         ("D blur before stride-2 (256->257)", bf16, lambda x, impl: up.upfirdn2d(
-            x, f, padding=2, impl=impl), ("upfirdn2d", {"u1d1": 3}), dict(padding=2)),
+            x, f, padding=2, impl=impl), {"upfirdn2d": 3, "upfirdn2d/u1d1": 3},
+         k2_bound(dict(padding=2))),
         ("D 1x1 skip down=2 (256->128)", bf16, lambda x, impl: up.upfirdn2d(
-            x, f, down=2, padding=1, impl=impl), ("upfirdn2d", {"u1d2": 2, "u2d1": 1}),
-         dict(down=2, padding=1)),
+            x, f, down=2, padding=1, impl=impl),
+         {"upfirdn2d": 3, "upfirdn2d/u1d2": 2, "upfirdn2d/u2d1": 1},
+         k2_bound(dict(down=2, padding=1))),
     ]
+    # The smooth activations (no path uses one): each in float32, two in bf16.
+    cases += [(f"{a} 256x256 clamp", dt, lambda x, impl, a=a: ba.bias_act(
+        x, b.to(x.dtype), act=a, clamp=256, impl=impl), dict(k1_first, bias_act_grad2=1),
+        k1_bound(12)) for a, dt in [(a, f32) for a in SMOOTH_ACTS] + [("tanh", bf16),
+                                                                      ("swish", bf16)]]
     recs = []
-    for name, dtype, fn, (kernel, variants), k2_args in cases:
+    for name, dtype, fn, want_launches, bound in cases:
         x = torch.randn(shape, generator=g, device=dev).to(dtype)
         dy1 = torch.randn(fn(x, "ref").shape, generator=g, device=dev).to(dtype)
         dy2 = torch.randn(shape, generator=g, device=dev).to(dtype)
-        before_k = {k: v for c in (ba.launches, up.launches) for k, v in c.items()}
-        before_v = dict(up.variant_launches)
+        before = launch_snapshot(counters)
         got = second_order(torch, lambda x: fn(x, "auto"), x, dy1, dy2)
-        launched = {k: v - before_k[k] for c in (ba.launches, up.launches) for k, v in c.items()}
-        used = {k: up.variant_launches[k] - before_v[k] for k in before_v
-                if up.variant_launches[k] != before_v[k]}
-        want_launches = ({"bias_act_fwd": 1, "bias_act_bwd": 1, "bias_act_bwd2": 1, "upfirdn2d": 0}
-                         if kernel == "bias_act" else
-                         {"bias_act_fwd": 0, "bias_act_bwd": 0, "bias_act_bwd2": 0, "upfirdn2d": 3})
-        if launched != want_launches or (variants is not None and used != variants):
-            raise AssertionError(f"{name}: second order launched {launched}, variants {used}")
+        launched = launched_since(counters, before)
+        if launched != want_launches:
+            raise AssertionError(f"{name}: second order launched {launched}")
+        # One timed call of the plain side is also the reference: its
+        # depthwise-conv double backward takes seconds in bfloat16.
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         want = second_order(torch, lambda x: fn(x, "ref"), x, dy1, dy2)
-        rec = {"case": name, "dtype": names[dtype], "shape": shape, "kernel": kernel,
-               "launches": launched, "variants": used}
-        check_close(rec, "grad", got[0], want[0], TOL_GRAD[names[dtype]])
-        check_close(rec, "grad2", got[1], want[1], TOL_GRAD[names[dtype]])
+        end.record()
+        end.synchronize()
+        dn = names[dtype]
+        rec = {"case": name, "dtype": dn, "shape": shape, "launches": launched,
+               "plain_ms": start.elapsed_time(end)}
+        if name.startswith(("elu", "selu")):
+            # act'' jumps at x + b = 0: the kernel takes the left branch there
+            # (e^0), as the JAX package does, PyTorch's double backward the
+            # right one (0). Exact ties are left out and counted.
+            ties = (x.float() + b.to(dtype).float().reshape(-1, 1, 1)) == 0
+            rec["ties"] = int(ties.sum())
+            got = (*got[:2], got[2].masked_fill(ties, 0))
+            want = (*want[:2], want[2].masked_fill(ties, 0))
+        for key, k, r in zip(("grad", "grad2", "gradx"), got, want):
+            check_close(rec, key, k, r, TOL_GRAD[dn])
         del got, want
         rec["ms"] = median_ms(lambda: second_order(torch, lambda x: fn(x, "auto"), x, dy1, dy2),
                               n=10)
-        # One timing of the plain side: its depthwise-conv double backward
-        # takes seconds in bfloat16.
-        rec["plain_ms"] = median_ms(lambda: second_order(torch, lambda x: fn(x, "ref"), x, dy1,
-                                                         dy2), n=1, warmup=0)
-        # The bound of the three launches: K1 moves x, y (forward), dy, y, dx
-        # (backward) and dy2, y, d/d dy (second order), 8 element passes; K2
-        # moves each launch's input and output, the forward's bytes 3 times.
-        if k2_args is None:
-            rec["bound_ms"], rec["bound_by"] = bound_ms(8 * x.numel() * x.element_size())
-        else:
-            w = up.work(shape, f.shape, itemsize=x.element_size(), **k2_args)
-            rec["bound_ms"], rec["bound_by"] = bound_ms(3 * w["bytes"], 3 * w["macs"])
+        rec["bound_ms"], rec["bound_by"] = bound_ms(*bound(x))
         recs.append(rec)
-        log(f"  {name:34s} {rec['dtype']:8s} g err {rec['grad_rel_err']:.2e}, d/d dy err "
-            f"{rec['grad2_rel_err']:.2e} | fwd + bwd + 2nd bwd {rec['ms']:.3f} ms (plain "
-            f"{rec['plain_ms']:.3f}) | bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) | "
-            f"launches {launched}{', ' + str(used) if used else ''}")
+        ties = f" ({rec['ties']} ties at 0 left out)" if "ties" in rec else ""
+        log(f"  {name:34s} {dn:8s} g err {rec['grad_rel_err']:.2e}, d/d dy err "
+            f"{rec['grad2_rel_err']:.2e}, d/dx err {rec['gradx_rel_err']:.2e}{ties} | fwd + bwd + "
+            f"2nd bwd {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}) | bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}) | launches {launched}")
         del x, dy1, dy2
         torch.cuda.empty_cache()
+    return dict(cases=recs, k1_grad2=k1_grad2_alone(torch, ba, dev, b),
+                k3=k3_second_order(torch, fl, net3, counters, dev),
+                filters=filter_gradients(torch, up, fl, net3, counters, f, dev))
+
+
+def k1_grad2_alone(torch, ba, dev, b):
+    """K1's third kernel (the smooth activations' second derivative) alone
+    at the trainer's shape against its plain version `_bias_act_grad2_ref`:
+    swish with the clamp on (6 element passes: ddx, dy, x and y in, ddy
+    and dv out)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    shape, recs = [BATCH, 128, RES, RES], []
+    spec = ba.activation_funcs["swish"]
+    cfg = (1, "swish", spec.def_alpha, spec.def_gain, 256.0)
+    for dtype, dn in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        ddx, dy, x = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+        bb = b.to(dtype)
+        y = ba.bias_act(x, bb, act="swish", clamp=256)
+
+        def kernel():
+            return torch.ops.latentaugment_torch.bias_act_grad2(ddx, dy, x, bb, y, *cfg)
+
+        def plain():
+            return ba._bias_act_grad2_ref(ddx, dy, x, bb, y, *cfg)
+
+        rec = {"case": "swish 256x256 clamp, alone", "dtype": dn, "shape": shape}
+        for key, k, r in zip(("ddy", "dv"), kernel(), plain()):
+            check_close(rec, key, k, r, TOL[dn])
+        rec["ms"], rec["plain_ms"] = median_ms(kernel), median_ms(plain)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(6 * x.numel() * x.element_size())
+        rec["library_ms"] = None  # no one PyTorch call computes it
+        recs.append(rec)
+        log(f"  K1 grad2 alone: {rec['case']} {dn:8s} err {rec['ddy_rel_err']:.2e} / "
+            f"{rec['dv_rel_err']:.2e} | {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f}) | bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+        del ddx, dy, x, y
+        torch.cuda.empty_cache()
     return recs
+
+
+def sg3_layer(torch, net3, lname, dev):
+    """A layer of the SG3-T 256 plan: its filters and filtered_lrelu's
+    arguments, as phase 1b takes them."""
+    layer = {ly.name.split("_")[0]: ly for ly in net3.generator_config().layers}[lname]
+    fu, fd = (None if f is None else torch.as_tensor(f, device=dev)
+              for f in net3._layer_filters(layer))
+    lo, hi = layer.padding
+    kw = dict(up=layer.up_factor, down=layer.down_factor, padding=(lo, hi, lo, hi),
+              gain=1.0 if layer.is_torgb else math.sqrt(2.0),
+              slope=1.0 if layer.is_torgb else 0.2, clamp=256.0, flip_filter=False)
+    return fu, fd, kw
+
+
+def k3_second_order(torch, fl, net3, counters, dev):
+    """K3 twice at L10, L8 and toRGB, bf16 at the walk's batch and float32
+    at half of it: autograd's d/d dy must be the linearised forward at
+    K3's own record, bit for bit; that kernel at the plain version's
+    record is held to `_linearised`, its plain form, at the same record;
+    the whole pattern and the linearised forward alone are timed. In
+    float32 also against the plain second derivative on the first
+    K3_PLAIN_ROWS samples (PyTorch's depthwise-conv double backward takes
+    seconds a layer, ten in bf16): the linearised forward and the first
+    derivative at the plain version's record, as phase 1b holds the
+    backward."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    cases = [("L10 up4 crop(-6,-9)", "L10", [256, 150, 150], "u4t24_d2t12", "u2t12_d4t24"),
+             ("L8 up2 pad(9,8)", "L8", [512, 150, 150], "u2t12_d2t12", "u2t12_d2t12"),
+             ("toRGB", "L14", [2, 256, 256], "u1t1_d1t1", "u1t1_d1t1")]
+    recs = []
+    for name, lname, chw, fwd_variant, bwd_variant in cases:
+        fu, fd, kw = sg3_layer(torch, net3, lname, dev)
+        args = (kw["up"], kw["down"], kw["padding"], kw["gain"], kw["slope"])
+        tu, td = (1 if f is None else f.shape[0] for f in (fu, fd))
+        want_launches = {"filtered_lrelu_fwd": 1, "filtered_lrelu_bwd": 1, "filtered_lrelu_lin": 1,
+                         f"filtered_lrelu/{fwd_variant}": 2}
+        key = f"filtered_lrelu/{bwd_variant}"
+        want_launches[key] = want_launches.get(key, 0) + 1
+        for dtype, dn, batch in ((torch.bfloat16, "bfloat16", SG3_BATCH),
+                                 (torch.float32, "float32", SG3_BATCH // 2)):
+            t_case = time.time()
+            shape = [batch, *chw]
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            b = (torch.randn([chw[0]], generator=g, device=dev) * 0.1).to(dtype)
+
+            def fn(x, impl):
+                return fl.filtered_lrelu(x, fu, fd, b, impl=impl, **kw)
+
+            with torch.no_grad():
+                dy1 = torch.randn(fn(x, "auto").shape, generator=g, device=dev).to(dtype)
+            dy2 = torch.randn(shape, generator=g, device=dev).to(dtype)
+            before = launch_snapshot(counters)
+            got = second_order(torch, lambda x: fn(x, "auto"), x, dy1, dy2)
+            launched = launched_since(counters, before)
+            if launched != want_launches:
+                raise AssertionError(f"K3 second order {name} {dn}: launched {launched}")
+            _, rec_k = fl._forward_kernel(x, fu, fd, b, *args, kw["clamp"], False,
+                                          need_record=True)
+            if not torch.equal(got[1], fl._lin_kernel(dy2, None, rec_k, fu, fd, *args, False)):
+                raise AssertionError(f"{name} {dn}: autograd's second derivative is not K3's "
+                                     "linearised forward at its own record")
+            rec = {"case": name, "dtype": dn, "shape": shape, "launches": launched,
+                   "plain_rows": K3_PLAIN_ROWS}
+            if got[2].any():
+                raise AssertionError(f"{name} {dn}: a second derivative w.r.t. x appeared")
+            del got
+            rec_r = fl._record_ref(x, fu, b, kw["up"], kw["padding"], kw["gain"], kw["slope"],
+                                   kw["clamp"], False)
+            lin_at_ref = fl._lin_kernel(dy2, None, rec_r, fu, fd, *args, False)
+            check_close(rec, "lin", lin_at_ref,
+                        fl._linearised(dy2, None, rec_r, fu, fd, *args, False), TOL_FL[dn])
+            if dn == "float32":
+                # Against the plain second derivative on the first rows.
+                r = slice(0, K3_PLAIN_ROWS)
+                want = second_order(torch, lambda x: fn(x, "ref"), x[r], dy1[r], dy2[r])
+                dx_at_ref = fl._backward_kernel(dy1[r], rec_r[:K3_PLAIN_ROWS * chw[0]],
+                                                tuple(shape[2:]), fu, fd, *args, False)
+                check_close(rec, "grad", dx_at_ref, want[0], TOL_GRAD[dn])
+                check_close(rec, "grad2", lin_at_ref[r], want[1], TOL_GRAD[dn])
+                del want
+            del lin_at_ref, rec_r
+            rec["ms"] = median_ms(lambda: second_order(torch, lambda x: fn(x, "auto"), x, dy1,
+                                                       dy2), n=10)
+            rec["lin_ms"] = median_ms(lambda: fl._lin_kernel(dy2, None, rec_k, fu, fd, *args,
+                                                             False))
+            rec["plain_lin_ms"] = median_ms(lambda: fl._linearised(dy2, None, rec_k, fu, fd,
+                                                                   *args, False), n=5)
+            # The linearised forward reads its input and the record and
+            # writes its output, at the forward's multiply-adds.
+            w = fl.work(shape, tu, td, kw["up"], kw["down"], kw["padding"],
+                        itemsize=x.element_size(), record=True)
+            rec["lin_bound_ms"], rec["lin_bound_by"] = bound_ms(w["bytes"], w["macs"])
+            rec["lin_library_ms"] = None  # no one PyTorch call computes it
+            rec["variant"] = fwd_variant
+            recs.append(rec)
+            plain = (f"g err {rec['grad_rel_err']:.2e}, d/d dy err {rec['grad2_rel_err']:.2e} "
+                     f"({K3_PLAIN_ROWS} rows) | " if "grad2_rel_err" in rec else "")
+            log(f"  K3 {name:20s} {dn:8s} {plain}fwd + bwd + 2nd bwd {rec['ms']:.3f} ms | "
+                f"linearised alone {rec['lin_ms']:.3f} ms (plain {rec['plain_lin_ms']:.3f}, err "
+                f"{rec['lin_rel_err']:.2e}), bound "
+                f"{rec['lin_bound_ms']:.3f} ms ({rec['lin_bound_by']}) | {fwd_variant} | case "
+                f"{time.time() - t_case:.1f} s")
+            del x, b, dy1, dy2, rec_k
+            torch.cuda.empty_cache()
+    return recs
+
+
+def filter_gradients(torch, up, fl, net3, counters, f, dev):
+    """Filters that require grad: K2 at the G blur (dx from K2, df from the
+    plain version's autograd w.r.t. f alone) in float32 and bf16, and K3
+    at L8 (dx and db from K3's backward, dfu and dfd from the decomposed
+    form through K1 and K2), against the plain versions: float32 (at half
+    the walk's batch) held to TOL_GRAD, bf16 recorded. K3's dx must be its
+    backward at its own record (phase 1b's record sliver moves single dx
+    values against the plain one); db, dfu and dfd are sums."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    recs = []
+    for dtype, dn in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        x = torch.randn([BATCH, 128, RES + 1, RES + 1], generator=g, device=dev).to(dtype)
+        dy = torch.randn([BATCH, 128, RES, RES], generator=g, device=dev).to(dtype)
+
+        def k2(impl):
+            xg, fg = x.clone().requires_grad_(True), f.clone().requires_grad_(True)
+            return torch.autograd.grad(up.upfirdn2d(xg, fg, padding=1, gain=4, impl=impl),
+                                       (xg, fg), dy)
+
+        before = launch_snapshot(counters)
+        got = k2("auto")
+        launched = launched_since(counters, before)
+        if launched != {"upfirdn2d": 2, "upfirdn2d/u1d1": 2}:
+            raise AssertionError(f"K2 filter gradient {dn}: launched {launched}")
+        rec = {"case": "K2 G blur after up-conv, df", "dtype": dn, "shape": list(x.shape),
+               "launches": launched}
+        for key, k, r in zip(("dx", "df"), got, k2("ref")):
+            check_close(rec, key, k, r, TOL_GRAD[dn])
+        recs.append(rec)
+        log(f"  filter grad {rec['case']:27s} {dn:8s} dx err {rec['dx_rel_err']:.2e}, df err "
+            f"{rec['df_rel_err']:.2e} | launches {launched}")
+        del x, dy, got
+        torch.cuda.empty_cache()
+    fu, fd, kw = sg3_layer(torch, net3, "L8", dev)
+    args = (kw["up"], kw["down"], kw["padding"], kw["gain"], kw["slope"])
+    for dtype, dn, batch in ((torch.float32, "float32", SG3_BATCH // 2),
+                             (torch.bfloat16, "bfloat16", SG3_BATCH)):
+        shape = [batch, 512, 150, 150]
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        b = (torch.randn([512], generator=g, device=dev) * 0.1).to(dtype)
+        with torch.no_grad():
+            dy = torch.randn(fl.filtered_lrelu(x, fu, fd, b, **kw).shape, generator=g,
+                             device=dev).to(dtype)
+
+        def k3(impl):
+            ts = [t.clone().requires_grad_(True) for t in (x, fu, fd, b)]
+            return torch.autograd.grad(fl.filtered_lrelu(*ts, impl=impl, **kw), ts, dy)
+
+        before = launch_snapshot(counters)
+        t0 = time.time()
+        got = k3("auto")
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launched = launched_since(counters, before)
+        if (launched.get("filtered_lrelu_fwd"), launched.get("filtered_lrelu_bwd"),
+                launched.get("filtered_lrelu_lin", 0)) != (1, 1, 0) \
+                or any(k.endswith("/generic") for k in launched):
+            raise AssertionError(f"K3 filter gradients {dn}: launched {launched}")
+        _, rec_k = fl._forward_kernel(x, fu, fd, b, *args, kw["clamp"], False, need_record=True)
+        if not torch.equal(got[0], fl._backward_kernel(dy, rec_k, tuple(shape[2:]), fu, fd,
+                                                       *args, False)):
+            raise AssertionError("K3 filter gradients: dx is not K3's backward at its own "
+                                 "record")
+        rec = {"case": "K3 L8 up2 pad(9,8), dfu / dfd / db", "dtype": dn, "shape": shape,
+               "launches": launched, "seconds": seconds}
+        # float32 is held. In bf16 each filter gradient is a bf16 sum of
+        # ~10^8 products (|dfu| ~ 8e3, where bf16's spacing is 64): recorded.
+        tol = TOL_GRAD[dn] if dn == "float32" else math.inf
+        for key, k, r in zip(("dfu", "dfd", "db"), got[1:], k3("ref")[1:]):
+            check_close(rec, key, k, r, tol)
+        recs.append(rec)
+        log(f"  filter grad {rec['case']:27s} {dn:8s} dfu err {rec['dfu_rel_err']:.2e}, dfd "
+            f"err {rec['dfd_rel_err']:.2e}, db err {rec['db_rel_err']:.2e}"
+            f"{'' if dn == 'float32' else ' (recorded)'} | {seconds:.3f} s, launches {launched}")
+        del x, b, dy, got, rec_k
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_sg3_path_length(torch, net3, counters, dev):
+    """The SG3-T generator at the operating point's widths (256x256,
+    channel_base 32768, channel_max 512, seeded random weights),
+    differentiated twice as `loss_g_pl` does: pl_grads = d sum(img *
+    noise) / d ws with its graph, the penalty mean((|pl_grads| -
+    PL_MEAN)^2), and its gradient w.r.t. every weight of G. The kernels
+    at batch SG3_PL_BATCH, in float32 under deterministic cuDNN and with
+    the bf16 top layers, are this path's run: launches counted, K3's
+    forward once per layer and its linearised forward once per layer but
+    toRGB (whose cotangent is the constant noise), K1's rectifier
+    relaunch in the mapping and affine layers, never `generic`. Against
+    the plain versions (PyTorch's depthwise-conv double backward takes
+    55 s for the whole G at batch 1), at batch SG3_PL_PLAIN_BATCH on the
+    same widths cut to SG3_PL_PLAIN_LAYERS layers: float32, every
+    weight's gradient within TRAIN_TOL_GRAD of its max, the bound phases
+    9 and 18 hold a float32 parameter gradient to (K3's record ties at 0
+    already move the first-order pl_grads by ~1e-4 on an H100); bf16 against
+    the plain float32 gradients, recorded."""
+    from latentaugment_tpu_torch.models.stylegan2.networks import set_impl
+
+    log(f"phase 1d: the SG3-T generator differentiated twice (path length), batch "
+        f"{SG3_PL_BATCH}; against plain at {SG3_PL_PLAIN_BATCH}, {SG3_PL_PLAIN_LAYERS} layers")
+    cfg = net3.generator_config()
+    g = torch.Generator(device=dev).manual_seed(32)
+    z = torch.randn([SG3_PL_BATCH, cfg.z_dim], generator=g, device=dev)
+    noise = torch.randn([SG3_PL_BATCH, cfg.img_channels, RES, RES], generator=g,
+                        device=dev) / RES
+
+    def penalty_grads(G, impl, n):
+        set_impl(G, impl)
+        params = list(G.parameters())
+        ws = G.mapping(z[:n], None)
+        img = G.synthesis(ws)
+        pl, = torch.autograd.grad((img * noise[:n]).sum(), ws, create_graph=True)
+        pen = (pl.square().sum(dim=2).mean(dim=1).sqrt() - PL_MEAN).square().mean()
+        # A weight the image depends on linearly only (toRGB's bias) has
+        # no path to the penalty: its gradient is 0.
+        grads = [torch.zeros_like(p) if d is None else d
+                 for p, d in zip(params, torch.autograd.grad(pen, params, allow_unused=True))]
+        torch.cuda.synchronize()
+        return pen.item(), pl.detach(), grads
+
+    G = net3.Generator(cfg, seed=31).to(dev)
+    layers, n16 = len(cfg.layers), cfg.num_fp16_res
+    rec = {"batch": SG3_PL_BATCH, "layers": layers, "plain_batch": SG3_PL_PLAIN_BATCH,
+           "plain_layers": SG3_PL_PLAIN_LAYERS}
+    for dtype_name, fp16_res in (("float32", 0), ("bfloat16", n16)):
+        cfg.num_fp16_res = fp16_res
+        with cudnn_deterministic(torch) if dtype_name == "float32" else contextlib.nullcontext():
+            reset_counters(counters)
+            t0 = time.time()
+            penalty_grads(G, "auto", SG3_PL_BATCH)
+            seconds = time.time() - t0
+            launches, variants = read_counters(
+                counters, f"SG3-T path length {dtype_name}",
+                ["bias_act_fwd", "bias_act_bwd", "bias_act_bwd2", "filtered_lrelu_fwd",
+                 "filtered_lrelu_bwd", "filtered_lrelu_lin"])
+        if launches["filtered_lrelu_fwd"] != layers or \
+                launches["filtered_lrelu_lin"] != layers - 1:
+            raise AssertionError(f"SG3-T path length: K3 launches {launches} over {layers} "
+                                 "layers")
+        rec[dtype_name] = dict(seconds_kernels=seconds, launches=launches,
+                               variant_launches=variants)
+        log(f"  kernels, {dtype_name}, batch {SG3_PL_BATCH}: {seconds:.2f} s; launches "
+            f"{launches}, by variant {variants}")
+    del G
+    torch.cuda.empty_cache()
+
+    cfg = net3.generator_config(num_layers=SG3_PL_PLAIN_LAYERS)
+    G = net3.Generator(cfg, seed=33).to(dev)
+    names = [n for n, _ in G.named_parameters()]
+    small = {}
+    for dtype_name, fp16_res in (("float32", 0), ("bfloat16", cfg.num_fp16_res)):
+        cfg.num_fp16_res = fp16_res
+        with cudnn_deterministic(torch) if dtype_name == "float32" else contextlib.nullcontext():
+            small[dtype_name] = penalty_grads(G, "auto", SG3_PL_PLAIN_BATCH)
+    cfg.num_fp16_res = 0
+    with cudnn_deterministic(torch):
+        t0 = time.time()
+        plain = penalty_grads(G, "ref", SG3_PL_PLAIN_BATCH)
+        seconds = time.time() - t0
+        again = penalty_grads(G, "auto", SG3_PL_PLAIN_BATCH)
+
+    def errors(got, want, label, tol=math.inf):
+        return sorted(((rel_close(k, r, tol, f"{label} d/d {n}"), n)
+                       for n, k, r in zip(names, got, want)), reverse=True)
+
+    for dtype_name, tol in (("float32", TRAIN_TOL_GRAD), ("bfloat16", math.inf)):
+        pen_k, pl_k, got = small[dtype_name]
+        errs = errors(got, plain[2], f"SG3-T path length {dtype_name}", tol)
+        rec[dtype_name].update(
+            penalty_kernels=pen_k, penalty_plain_float32=plain[0],
+            pl_grads_rel_err=rel_close(pl_k, plain[1], math.inf, "pl_grads"),
+            grad_worst=errs[:5], grad_median_rel_err=errs[len(errs) // 2][0])
+        log(f"  {dtype_name} against plain float32 ({SG3_PL_PLAIN_LAYERS} layers, batch "
+            f"{SG3_PL_PLAIN_BATCH}): penalty {pen_k:.7g} / {plain[0]:.7g}, pl_grads err "
+            f"{rec[dtype_name]['pl_grads_rel_err']:.2e}, weight gradients err / max: median "
+            f"{errs[len(errs) // 2][0]:.2e}, worst {[(f'{e:.2e}', n) for e, n in errs[:5]]}")
+    rec["float32"]["rerun_worst"] = errors(again[2], small["float32"][2], "rerun")[0]
+    rec["seconds_plain_float32"] = seconds
+    log(f"  plain float32 ({SG3_PL_PLAIN_LAYERS} layers, batch {SG3_PL_PLAIN_BATCH}): "
+        f"{seconds:.2f} s; the kernels rerun: worst {rec['float32']['rerun_worst'][0]:.2e}")
+    rec["launches"] = rec["float32"]["launches"]
+    del G, small, plain, again
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_flrelu(torch, fl, net3, dev):
@@ -912,7 +1313,7 @@ def phase_sg3r(torch, np, benchmark, net3, up, fl, counters, dev):
     batch, argv, (batches, launches, setup_s, peak), dec = walk
     check_batches(torch, np, batches, batch, "SG3-R")
     launches, variants = read_counters(counters, "SG3-R walk",
-                                       [k for k in launches if k != "bias_act_bwd2"])
+                                       [k for k in launches if k not in SECOND_ORDER])
     # Per batch, each of the decomposed layers' two FIRs runs in 11
     # syntheses (10 Adam steps and the final one) and 10 backwards: the
     # 1-D up filter through `sepn`, the radial down filter through `f2d`
@@ -1242,8 +1643,12 @@ def phase_slice(torch, np, benchmark, counters, arch="stylegan2", batch=BATCH):
 
     batches, launches, setup_s, peak = run_policy(torch, argv, counters)
     check_batches(torch, np, batches, batch, arch)
-    # Every kernel the walk runs (second derivatives belong to the trainer).
-    launches, variants = read_counters(counters, arch, [k for k in launches if k != "bias_act_bwd2"])
+    # Every kernel the walk runs (second derivatives belong to the trainer),
+    # and no second-order kernel.
+    launches, variants = read_counters(counters, arch,
+                                       [k for k in launches if k not in SECOND_ORDER])
+    if any(launches.get(k) for k in SECOND_ORDER):
+        raise AssertionError(f"{arch}: the walk launched a second-order kernel: {launches}")
     kernel_sps = samples_per_s(batches, batch)
     log(f"  kernels: batch walls {[round(b['wall'], 3) for b in batches]} s, "
         f"{kernel_sps:.3f} samples/s over batches 2-3, set-up {setup_s:.1f} s, "
@@ -3400,9 +3805,16 @@ def main():
     log(f"  nvcc builds (side by side) took {time.time() - t0:.1f} s")
     bias_recs, up_recs = phase_kernels(torch, ba, up, dev)
     fl_recs = phase_flrelu(torch, fl, net3, dev)
-    second_recs = phase_second_order(torch, ba, up, dev)
-    log(f"  phase 1 took {time.time() - t0:.1f} s (builds included)")
+    log(f"  phases 1 and 1b took {time.time() - t0:.1f} s (builds included)")
     phase_s = {"1": time.time() - t0}
+    t0 = time.time()
+    second_rec = phase_second_order(torch, ba, up, fl, net3, dev)
+    phase_s["1c"] = time.time() - t0
+    log(f"  phase 1c took {phase_s['1c']:.1f} s")
+    t0 = time.time()
+    pl_rec = phase_sg3_path_length(torch, net3, (ba.launches, up.launches, fl.launches), dev)
+    phase_s["1d"] = time.time() - t0
+    log(f"  phase 1d took {phase_s['1d']:.1f} s")
 
     def timed(label, fn, *args, **kwargs):
         """fn's result; its seconds go to phase_s[label] and the log."""
@@ -3426,13 +3838,13 @@ def main():
     first_order = ["bias_act_fwd", "bias_act_bwd"]
     sg2_need = [*first_order, *up.launches]
     proj_rec = timed("5", phase_projector, torch, np, benchmark, all_counters, sg2_need,
-                     [*first_order, *fl.launches], sg3_rec, dev)
+                     [*first_order, "filtered_lrelu_fwd", "filtered_lrelu_bwd"], sg3_rec, dev)
     tr_rec = timed("6", phase_tr_walk, torch, np, all_counters, sg2_need, slice_rec)
     geo_rec = timed("7", phase_geometric, torch, np, dev)
     metrics_rec = timed("8", phase_metrics, torch, np, all_counters,
                         ["bias_act_fwd", "upfirdn2d"], slice_rec, dev)
-    train_rec = timed("9", phase_train, torch, np, all_counters, [*ba.launches, *up.launches],
-                      dev)
+    train_rec = timed("9", phase_train, torch, np, all_counters,
+                      [k for k in (*ba.launches, *up.launches) if k != "bias_act_grad2"], dev)
     convert_rec = timed("10", phase_convert, torch, np, all_counters, slice_rec, sg3_rec, dev)
     sg3r_rec = timed("11", phase_sg3r, torch, np, benchmark, net3, up, fl, all_counters, dev)
     drivers_rec = timed("12", phase_drivers, torch, all_counters, slice_rec)
@@ -3444,7 +3856,8 @@ def main():
     tools_rec = timed("17", phase_tools, torch, np, sg2_counters, sg2_need, slice_rec, dev)
     dp_rec = timed("18", phase_dp, torch, np, sg2_counters, sg2_need, slice_rec, dev)
     tp_rec = timed("19", phase_tp, torch, np, sg2_need, slice_rec, sg3_rec, dev)
-    paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "projector": proj_rec,
+    paths = {"walk": slice_rec, "walk_stylegan3": sg3_rec, "sg3_path_length": pl_rec,
+             "projector": proj_rec,
              "projector_stylegan3": proj_rec["stylegan3"], "tr_walk": tr_rec,
              "metrics": metrics_rec, "train": train_rec,
              "walk_nvidia_pickle": convert_rec["nvidia_pickle"],
@@ -3468,6 +3881,8 @@ def main():
     ba_main = main_rec(bias_recs, "G conv 256x256 lrelu clamp", "bfloat16")
     up_main = main_rec(up_recs, "G blur after up-conv (257->256)", "bfloat16")
     fl_main = main_rec(fl_recs, "L10 up4 crop(-6,-9)", "bfloat16")
+    lin_main = main_rec(second_rec["k3"], "L10 up4 crop(-6,-9)", "bfloat16")
+    grad2_main = main_rec(second_rec["k1_grad2"], "swish 256x256 clamp, alone", "float32")
     r_recs = [r for r in sg3r_rec["kernels"] if r["variant"] == "f2d"]
     g_recs = [r for r in sg3r_rec["kernels"] if "generic_max_abs_err" in r]
     r_main = next(r for r in r_recs if "radial" in r["case"] and r["dtype"] == "bfloat16")
@@ -3503,6 +3918,33 @@ def main():
               sg3_rec["launches"]["filtered_lrelu_fwd"], fl_recs, fl_main, "fwd", "u4t24_d2t12"),
         entry("filtered_lrelu_bwd", "cuda", fl_src, fl_tpu,
               sg3_rec["launches"]["filtered_lrelu_bwd"], fl_recs, fl_main, "bwd", "u2t12_d4t24"),
+        # K3's linearised forward (the backward's derivative): launches are
+        # phase 1d's, the SG3-T generator differentiated twice; times and
+        # bound are L10's in bf16, alone against its plain form.
+        {"name": "filtered_lrelu_lin", "route": "cuda", "source": fl_src, "replaces": fl_tpu,
+         "launches": pl_rec["launches"]["filtered_lrelu_lin"], "variant": lin_main["variant"],
+         "case": "linearised forward, alone: " + lin_main["case"],
+         "launches_by_path": {p: r["launches"].get("filtered_lrelu_lin", 0)
+                              for p, r in paths.items()},
+         "max_abs_err": max(r["lin_max_abs_err"] for r in second_rec["k3"]),
+         "ms": lin_main["lin_ms"], "plain_ms": lin_main["plain_lin_ms"],
+         "bound_ms": lin_main["lin_bound_ms"], "bound_by": lin_main["lin_bound_by"],
+         "library_ms": lin_main["lin_library_ms"]},
+        # K1's smooth activations' second derivative: no path uses a smooth
+        # activation (launches 0 on every path; phase 1c's op-level
+        # launches apart); times and bound are the swish case's, alone.
+        {"name": "bias_act_grad2", "route": "triton", "source": ba_src, "replaces": ba_tpu,
+         "launches": pl_rec["launches"]["bias_act_grad2"], "variant": None,
+         "case": grad2_main["case"] + ", " + grad2_main["dtype"],
+         "launches_by_path": {p: r["launches"].get("bias_act_grad2", 0)
+                              for p, r in paths.items()},
+         "op_level_launches": sum(r["launches"].get("bias_act_grad2", 0)
+                                  for r in second_rec["cases"]),
+         "max_abs_err": max(r[f"{k}_max_abs_err"] for r in second_rec["k1_grad2"]
+                            for k in ("ddy", "dv")),
+         "ms": grad2_main["ms"], "plain_ms": grad2_main["plain_ms"],
+         "bound_ms": grad2_main["bound_ms"], "bound_by": grad2_main["bound_by"],
+         "library_ms": grad2_main["library_ms"]},
         # K2's staged 2-D polyphase variant, StyleGAN3-R's radial filter
         # and its backward: launches are the SG3-R walk's f2d ones.
         dict(entry("upfirdn2d_f2d", "cuda", "latentaugment_tpu_torch/csrc/upfirdn2d.cu",
@@ -3546,7 +3988,7 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "bias_act": bias_recs, "upfirdn2d": up_recs, "filtered_lrelu": fl_recs,
-                   "second_order": second_recs, "train": train_rec,
+                   "second_order": second_rec, "sg3_path_length": pl_rec, "train": train_rec,
                    "small_reference": small, "slice": slice_rec, "slice_stylegan3": sg3_rec,
                    "projector": proj_rec, "tr_walk": tr_rec, "geometric": geo_rec,
                    "metrics": metrics_rec, "convert": convert_rec, "sg3r": sg3r_rec,

@@ -1,17 +1,20 @@
-// Kernel K3: filtered_lrelu, forward and backward, on [planes, H, W]
-// images, f32 or bf16 in and out, fp32 arithmetic throughout.
+// Kernel K3: filtered_lrelu, forward, backward and linearised forward, on
+// [planes, H, W] images, f32 or bf16 in and out, fp32 arithmetic
+// throughout.
 //
 // Replaces the Pallas kernel `_filtered_lrelu_fused`
 // (latentaugment_tpu/ops/filtered_lrelu.py:328-431, `pl.pallas_call` at
 // :410) and its custom VJP `_fused_op` (:175-212). The TPU kernel's
-// backward was the decomposed form's VJP; here the backward is a kernel
-// too, the same one run in its second mode.
+// backward was the decomposed form's VJP, traced JAX that differentiates
+// again; here the backward is a kernel too, the same one run in its
+// second mode, and the backward's derivative is its third mode.
 //
 // One launch computes, per plane (n, c) and per tile of outputs:
 //
 //   stage 1  M = FIR_f1(pad_lo(zero_insert(X, up), pad1))    on the mid grid
 //   middle   forward:  M = clamp(lrelu(M, slope) * gain)    (+ 2-bit record)
-//            backward: M = M * gain * (negative ? slope : 1), 0 where clamped
+//            backward, linearised forward:
+//                      M = M * gain * (negative ? slope : 1), 0 where clamped
 //   stage 2  Y = decimate(FIR_f2(pad_lo(M, pad2)), down)   on the output grid
 //
 // with separable (1-D) filters, each axis in its own pass. Forward: X is
@@ -20,15 +23,21 @@
 // canvas. Backward: X is dy, stage 1 = fd flipped with up = down and
 // pad1 = taps - 1, stage 2 = fu flipped with down = up and the padding
 // transformed (the wrapper computes it as K2's backward does); the middle
-// multiplies by the derivative read from the forward's record. Positions
-// of the mid grid outside [0, mid_h) x [0, mid_w) are zeros; negative
-// padding crops.
+// multiplies by the derivative read from the forward's record. The
+// backward dx = U^T M D^T dy is linear in dy; its derivative with respect
+// to dy, applied to ddx, is D M U ddx: the linearised forward, the
+// forward's geometry (X = ddx + the cotangent of the bias gradient) with
+// the backward's middle step. Each of the two is the other's adjoint on
+// the same record, so derivatives of any order alternate between them.
+// Positions of the mid grid outside [0, mid_h) x [0, mid_w) are zeros;
+// negative padding crops.
 //
 // The record: 2 bits per up-rate pixel, bit 0 = "not positive" (slope
 // applies), bit 1 = "clamped" (gradient 0), four pixels of a row per
 // byte (pixel x in bits 2*(x%4) of byte x/4), row pitch ceil(mid_w/4)
-// bytes. It is written only when the wrapper asks (autograd needs it).
-// Every byte is written by exactly one block: a block owns the mid
+// bytes. It is written only when the wrapper asks (autograd needs it),
+// and read by the backward and the linearised forward, any byte by any
+// block. Every byte is written by exactly one block: a block owns the mid
 // pixels of its own tile_out*down core, the last tile of a row and of a
 // column owning through to the canvas edge. No atomics: the kernel is
 // deterministic.
@@ -48,9 +57,10 @@
 // Three kernels, chosen by the plan in ops/filtered_lrelu.py (the
 // launchers refuse a plan that does not fit them):
 //
-//  * `filtered_lrelu_kernel_tiled<UP, DOWN, BWD, T>` for the alias-free
+//  * `filtered_lrelu_kernel_tiled<UP, DOWN, MODE, T>` for the alias-free
 //    generator's layers: (up, taps1, down, taps2) = (2,12,2,12),
-//    (4,24,2,12) and, in the backward of an up-4 layer, (2,12,4,24); six
+//    (4,24,2,12) (forward and linearised forward) and, in the backward of
+//    an up-4 layer, (2,12,4,24); six
 //    live taps per phase in stage 1 always. Everything about the filters
 //    is known at compile time, so every tap loop unrolls. The taps are
 //    kernel parameters (constant memory): with compile-time indices each
@@ -69,10 +79,11 @@
 //      C   stage 1 along H + the middle step: a thread makes 8 rows x 4
 //          columns, reading float4 columns of s_a down a sliding window
 //          (8/up + 6 loads for 224 multiply-adds), packs its own record
-//          byte per row (forward) or reads it (backward: one byte per
-//          row, asked for before the FIR so that its latency passes
-//          under it; the tile's 4-alignment makes any bit offset a whole
-//          byte), and stores float4 to s_m; a tile inside the canvas
+//          byte per row (forward) or reads it (backward and linearised
+//          forward: one byte per row, asked for before the FIR so that
+//          its latency passes under it; the mid tile's 4-aligned origin
+//          makes each read a whole byte, whichever tile wrote it), and
+//          stores float4 to s_m; a tile inside the canvas
 //          skips the bounds tests
 //      D   stage 2 along H: 4 output rows x 4 columns from a sliding
 //          window of 3*down + taps2 float4 loads
@@ -95,7 +106,7 @@
 //    the plan's by more than a tenth; the 24-tap backward pays the most
 //    halo, 88x152 mid pixels for 64x128 useful ones, and larger tiles
 //    leave one block per SM).
-//  * `filtered_lrelu_kernel_pointwise<BWD, T>` for up = down = 1 without
+//  * `filtered_lrelu_kernel_pointwise<READ, T>` for up = down = 1 without
 //    filters or padding (toRGB): one thread per 4 pixels of a row, no
 //    shared memory.
 //  * `filtered_lrelu_kernel<T>`, the generic kernel, for every other
@@ -113,6 +124,13 @@
 #define FLRELU_THREADS 256
 #define FLRELU_PHASE_TAPS 7  // stage-1 taps per phase in the tiled kernel's tables
 
+// The modes of a launch. FWD writes the record (when asked); BWD and LIN
+// read it. BWD runs the transposed geometry and takes no bias; FWD and LIN
+// run the forward's.
+#define FLRELU_FWD 0
+#define FLRELU_BWD 1
+#define FLRELU_LIN 2
+
 // The forward's middle step on one value; `bits` gets the record's pair.
 __device__ __forceinline__ float middle_forward(float acc, float slope, float gain, float clamp,
                                                 unsigned& bits) {
@@ -126,7 +144,8 @@ __device__ __forceinline__ float middle_forward(float acc, float slope, float ga
     return v;
 }
 
-// The backward's middle step: the derivative the record's pair selects.
+// The backward's (and the linearised forward's) middle step: the
+// derivative the record's pair selects.
 __device__ __forceinline__ float middle_backward(float acc, float slope, float gain,
                                                  unsigned bits) {
     return (bits & 2u) ? 0.f : acc * gain * ((bits & 1u) ? slope : 1.f);
@@ -169,8 +188,8 @@ static inline size_t tiled_smem_bytes(int up, int toh, int mh, int mw) {
 
 // The middle step on 4 columns of one mid row. MASKED: the tile reaches
 // past the canvas, positions outside are 0. Forward: `byte` returns the
-// 4 record pairs; backward: `byte` holds them.
-template <bool BWD, bool MASKED>
+// 4 record pairs; backward and linearised forward: `byte` holds them.
+template <int MODE, bool MASKED>
 __device__ __forceinline__ float4 middle_row4(float4 acc, unsigned& byte, bool row_in, int mxb,
                                               int mid_w, float slope, float gain, float clamp) {
     const float a[4] = {acc.x, acc.y, acc.z, acc.w};
@@ -179,7 +198,7 @@ __device__ __forceinline__ float4 middle_row4(float4 acc, unsigned& byte, bool r
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const bool in = !MASKED || (row_in && mxb + i >= 0 && mxb + i < mid_w);
-        if (BWD) {
+        if (MODE != FLRELU_FWD) {
             const float f = middle_backward(a[i], slope, gain, (byte >> (2 * i)) & 3u);
             v[i] = in ? f : 0.f;
         } else {
@@ -189,11 +208,11 @@ __device__ __forceinline__ float4 middle_row4(float4 acc, unsigned& byte, bool r
             out |= (in ? bits : 0u) << (2 * i);
         }
     }
-    if (!BWD) byte = out;
+    if (MODE == FLRELU_FWD) byte = out;
     return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-template <int UP, int DOWN, bool BWD, typename T>
+template <int UP, int DOWN, int MODE, typename T>
 __global__ void __launch_bounds__(FLRELU_THREADS)
 filtered_lrelu_kernel_tiled(const T* __restrict__ x, const T* __restrict__ bias,
                             T* __restrict__ y, uint8_t* __restrict__ record,
@@ -201,6 +220,7 @@ filtered_lrelu_kernel_tiled(const T* __restrict__ x, const T* __restrict__ bias,
     constexpr int NP = FLRELU_PHASE_TAPS;
     constexpr int T2 = 6 * DOWN;
     constexpr int NT = FLRELU_THREADS;
+    constexpr bool READ = MODE != FLRELU_FWD;  // the middle step reads the record
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
 
@@ -291,14 +311,15 @@ filtered_lrelu_kernel_tiled(const T* __restrict__ x, const T* __restrict__ bias,
             const int dr = NT / ncg, dg = NT - dr * ncg;
             int rg = tid / ncg, cg = tid - rg * ncg;
             uint8_t* rp = record + plane * rec_plane;
-            const bool write_record = !BWD && record != nullptr;
+            const bool write_record = !READ && record != nullptr;
             while (rg < nrg) {
                 const float* src = s_a + (rg * (8 / UP)) * pa + cg * 4;
                 const int mxb = mxa + cg * 4;
-                // Backward: this item's 8 record bytes, asked for before the
-                // FIR so that their latency passes under it.
+                // Backward, linearised forward: this item's 8 record bytes,
+                // asked for before the FIR so that their latency passes
+                // under it.
                 unsigned rec[8];
-                if (BWD) {
+                if (READ) {
                     const int bx = mxb >> 2;  // mxb is a multiple of 4, maybe negative
 #pragma unroll
                     for (int rr = 0; rr < 8; ++rr) {
@@ -330,13 +351,13 @@ filtered_lrelu_kernel_tiled(const T* __restrict__ x, const T* __restrict__ bias,
                 for (int rr = 0; rr < 8; ++rr) {
                     const int lr = rg * 8 + rr;
                     const int my = mya + lr;
-                    unsigned byte = BWD ? rec[rr] : 0u;
+                    unsigned byte = READ ? rec[rr] : 0u;
                     float4 v;
                     if (interior)
-                        v = middle_row4<BWD, false>(acc[rr], byte, true, mxb, p.mid_w, p.slope,
+                        v = middle_row4<MODE, false>(acc[rr], byte, true, mxb, p.mid_w, p.slope,
                                                     p.gain, p.clamp);
                     else
-                        v = middle_row4<BWD, true>(acc[rr], byte, my >= 0 && my < p.mid_h, mxb,
+                        v = middle_row4<MODE, true>(acc[rr], byte, my >= 0 && my < p.mid_h, mxb,
                                                    p.mid_w, p.slope, p.gain, p.clamp);
                     *reinterpret_cast<float4*>(s_m + lr * mw + cg * 4) = v;
                     if (write_record && col_owned && my >= own_y0 && my < own_y1)
@@ -451,7 +472,7 @@ filtered_lrelu_kernel_tiled(const T* __restrict__ x, const T* __restrict__ bias,
     }
 }
 
-template <int UP, int DOWN, bool BWD>
+template <int UP, int DOWN, int MODE>
 static cudaError_t launch_tiled(int dtype, const void* x, const void* bias, void* y,
                                 void* record, const FlreluTiledParams& p, size_t smem,
                                 cudaStream_t s) {
@@ -461,35 +482,37 @@ static cudaError_t launch_tiled(int dtype, const void* x, const void* bias, void
                     (unsigned)(p.planes < 65535 ? p.planes : 65535));
     if (grid.y > 65535) return cudaErrorInvalidValue;
     if (dtype == 0)
-        return launch_kernel(filtered_lrelu_kernel_tiled<UP, DOWN, BWD, float>, grid, block, smem,
+        return launch_kernel(filtered_lrelu_kernel_tiled<UP, DOWN, MODE, float>, grid, block, smem,
                              s, (const float*)x, (const float*)bias, (float*)y,
                              (uint8_t*)record, p);
-    return launch_kernel(filtered_lrelu_kernel_tiled<UP, DOWN, BWD, __nv_bfloat16>, grid, block,
+    return launch_kernel(filtered_lrelu_kernel_tiled<UP, DOWN, MODE, __nv_bfloat16>, grid, block,
                          smem, s, (const __nv_bfloat16*)x, (const __nv_bfloat16*)bias,
                          (__nv_bfloat16*)y, (uint8_t*)record, p);
 }
 
 // x: [planes, in_h, in_w]; y: [planes, out_h, out_w]; record: [planes,
-// mid_h, rec_pitch] bytes (forward: written when not null; backward:
-// read, required). bias: [channels] or null (forward only). t1x, t1y:
-// host arrays of up * 7 taps, t2: host array of 6 * down taps (see
-// FlreluTiledParams). (up, down, backward) must be one of the compiled
-// variants and the tile must fit them.
+// mid_h, rec_pitch] bytes (mode FLRELU_FWD: written when not null;
+// FLRELU_BWD, FLRELU_LIN: read, required). bias: [channels] or null (not
+// in FLRELU_BWD). t1x, t1y: host arrays of up * 7 taps, t2: host array of
+// 6 * down taps (see FlreluTiledParams). (up, down, mode) must be one of
+// the compiled variants and the tile must fit them.
 extern "C" int filtered_lrelu_tiled_launch(
         const void* x, const void* bias, void* y, void* record, int dtype,
         long long planes, int channels,
         int in_h, int in_w, int mid_h, int mid_w, int out_h, int out_w,
-        int up, int down, int backward, int pad2x, int pad2y, int jx, int jy,
+        int up, int down, int mode, int pad2x, int pad2y, int jx, int jy,
         int toh, int tow, int mh, int mw, int smem_bytes,
         const float* t1x, const float* t1y, const float* t2,
         float slope, float gain, float clamp, void* stream) {
-    const bool variant = (up == 2 && down == 2) || (up == 4 && down == 2 && !backward) ||
-                         (up == 2 && down == 4 && backward);
-    if (!variant || (dtype != 0 && dtype != 1) || planes < 0 || channels < 1 ||
+    const bool bwd = mode == FLRELU_BWD;
+    const bool variant = (up == 2 && down == 2) || (up == 4 && down == 2 && !bwd) ||
+                         (up == 2 && down == 4 && bwd);
+    if (!variant || mode < FLRELU_FWD || mode > FLRELU_LIN || (dtype != 0 && dtype != 1) ||
+        planes < 0 || channels < 1 ||
         in_h <= 0 || in_w <= 0 || mid_h <= 0 || mid_w <= 0 || out_h <= 0 || out_w <= 0 ||
         t1x == nullptr || t1y == nullptr || t2 == nullptr ||
-        (backward && (record == nullptr || bias != nullptr)) ||
-        (!backward && (pad2x != 0 || pad2y != 0 || (tow * down) % 4 != 0)) ||
+        (mode != FLRELU_FWD && record == nullptr) || (bwd && bias != nullptr) ||
+        (!bwd && (pad2x != 0 || pad2y != 0 || (tow * down) % 4 != 0)) ||
         toh < 4 || toh % 4 != 0 || tow < 4 || tow % 4 != 0 || mh % 8 != 0 || mw % 8 != 0 ||
         mh < (toh - 1) * down + 6 * down + 3 || mw < (tow - 1) * down + 6 * down + 3)
         return (int)cudaErrorInvalidValue;
@@ -515,25 +538,32 @@ extern "C" int filtered_lrelu_tiled_launch(
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (up == 2 && down == 2)
-        err = backward ? launch_tiled<2, 2, true>(dtype, x, bias, y, record, p, need, s)
-                       : launch_tiled<2, 2, false>(dtype, x, bias, y, record, p, need, s);
+        err = mode == FLRELU_FWD
+            ? launch_tiled<2, 2, FLRELU_FWD>(dtype, x, bias, y, record, p, need, s)
+            : mode == FLRELU_BWD
+            ? launch_tiled<2, 2, FLRELU_BWD>(dtype, x, bias, y, record, p, need, s)
+            : launch_tiled<2, 2, FLRELU_LIN>(dtype, x, bias, y, record, p, need, s);
     else if (up == 4)
-        err = launch_tiled<4, 2, false>(dtype, x, bias, y, record, p, need, s);
+        err = mode == FLRELU_FWD
+            ? launch_tiled<4, 2, FLRELU_FWD>(dtype, x, bias, y, record, p, need, s)
+            : launch_tiled<4, 2, FLRELU_LIN>(dtype, x, bias, y, record, p, need, s);
     else
-        err = launch_tiled<2, 4, true>(dtype, x, bias, y, record, p, need, s);
+        err = launch_tiled<2, 4, FLRELU_BWD>(dtype, x, bias, y, record, p, need, s);
     return (int)err;
 }
 
 // ----------------------------------------------------------------------------
 // The pointwise kernel: up = down = 1, no filters, no padding.
 
-template <bool BWD, typename T>
+template <bool READ, typename T>
 __global__ void __launch_bounds__(FLRELU_THREADS)
 filtered_lrelu_kernel_pointwise(const T* __restrict__ x, const T* __restrict__ bias,
                                 T* __restrict__ y, uint8_t* __restrict__ record,
                                 long long rows, int channels, int h, int w, int rec_pitch,
                                 float slope, float gain, float clamp) {
-    // One thread per record byte: 4 pixels of one row.
+    // One thread per record byte: 4 pixels of one row. READ: the backward
+    // and the linearised forward, one computation here (no filters; only
+    // the latter adds a bias).
     const long long total = rows * rec_pitch;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
@@ -542,12 +572,12 @@ filtered_lrelu_kernel_pointwise(const T* __restrict__ x, const T* __restrict__ b
         const float b = (bias != nullptr) ? load_f32(bias + (row / h) % channels) : 0.f;
         const T* src = x + row * w + bx * 4;
         T* dst = y + row * w + bx * 4;
-        unsigned byte = BWD ? (unsigned)record[i] : 0u;
+        unsigned byte = READ ? (unsigned)record[i] : 0u;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
             if (bx * 4 + k < w) {
                 const float a = load_f32(src + k) + b;
-                if (BWD) {
+                if (READ) {
                     store(dst + k, middle_backward(a, slope, gain, (byte >> (2 * k)) & 3u));
                 } else {
                     unsigned bits = 0u;
@@ -556,18 +586,21 @@ filtered_lrelu_kernel_pointwise(const T* __restrict__ x, const T* __restrict__ b
                 }
             }
         }
-        if (!BWD && record != nullptr) record[i] = (uint8_t)byte;
+        if (!READ && record != nullptr) record[i] = (uint8_t)byte;
     }
 }
 
-// x, y: [planes, h, w]; record: [planes, h, ceil(w/4)] bytes.
+// x, y: [planes, h, w]; record: [planes, h, ceil(w/4)] bytes (read, and
+// required, in modes FLRELU_BWD and FLRELU_LIN); bias: not in FLRELU_BWD.
 extern "C" int filtered_lrelu_pointwise_launch(
         const void* x, const void* bias, void* y, void* record, int dtype,
-        long long planes, int channels, int h, int w, int backward,
+        long long planes, int channels, int h, int w, int mode,
         float slope, float gain, float clamp, void* stream) {
     if ((dtype != 0 && dtype != 1) || planes < 0 || channels < 1 || h <= 0 || w <= 0 ||
-        (backward && (record == nullptr || bias != nullptr)))
+        mode < FLRELU_FWD || mode > FLRELU_LIN ||
+        (mode != FLRELU_FWD && record == nullptr) || (mode == FLRELU_BWD && bias != nullptr))
         return (int)cudaErrorInvalidValue;
+    const bool read = mode != FLRELU_FWD;
     if (planes == 0) return (int)cudaSuccess;
     const int rec_pitch = (w + 3) / 4;
     const long long rows = planes * h;
@@ -578,7 +611,7 @@ extern "C" int filtered_lrelu_pointwise_launch(
     cudaError_t err;
     if (dtype == 0) {
         const float* xs = (const float*)x; const float* bs = (const float*)bias;
-        err = backward
+        err = read
             ? launch_kernel(filtered_lrelu_kernel_pointwise<true, float>, grid, block, 0, s, xs,
                             bs, (float*)y, (uint8_t*)record, rows, channels, h, w, rec_pitch,
                             slope, gain, clamp)
@@ -588,7 +621,7 @@ extern "C" int filtered_lrelu_pointwise_launch(
     } else {
         const __nv_bfloat16* xs = (const __nv_bfloat16*)x;
         const __nv_bfloat16* bs = (const __nv_bfloat16*)bias;
-        err = backward
+        err = read
             ? launch_kernel(filtered_lrelu_kernel_pointwise<true, __nv_bfloat16>, grid, block, 0,
                             s, xs, bs, (__nv_bfloat16*)y, (uint8_t*)record, rows, channels, h, w,
                             rec_pitch, slope, gain, clamp)
@@ -612,7 +645,8 @@ extern "C" int filtered_lrelu_pointwise_launch(
 // mid tile MT*MT, then MT*MT bytes of record pairs, with
 // MT = (TO-1)*down + taps2 and XT = (MT + taps1 - 2 + up) / up. The
 // forward packs the record from the pairs of the pixels the block owns;
-// the backward reads each pixel's pair from the packed record.
+// the backward and the linearised forward read each pixel's pair from
+// the packed record.
 
 struct FlreluParams {
     long long planes;  // N * C
@@ -621,7 +655,7 @@ struct FlreluParams {
     int up, pad1x, pad1y, t1, flip1;
     int down, pad2x, pad2y, t2, flip2;
     float gain1, gain2;       // per-axis tap scale of each stage
-    int backward;             // 0: activation (forward), 1: derivative from the record
+    int mode;                 // FLRELU_FWD: activation; BWD, LIN: derivative from the record
     float slope, gain, clamp; // clamp < 0: none
     int tile, xt, mt;         // output tile edge, input and mid tile edges
     int rec_pitch;            // bytes per record row: ceil(mid_w / 4)
@@ -729,7 +763,7 @@ __global__ void filtered_lrelu_kernel(const T* __restrict__ x, const T* __restri
                     float acc = 0.f;
                     for (int a = a0, k = li0; a < p.t1; a += p.up, ++k)
                         acc += s_f1[a] * s_a[k * MT + c];
-                    if (!p.backward) {
+                    if (p.mode == FLRELU_FWD) {
                         v = middle_forward(acc, p.slope, p.gain, p.clamp, bits);
                     } else {
                         const uint8_t byte = record[plane * rec_plane
@@ -744,7 +778,7 @@ __global__ void filtered_lrelu_kernel(const T* __restrict__ x, const T* __restri
         __syncthreads();
 
         // Forward: pack the pairs of the owned pixels, 4 per byte.
-        if (!p.backward && record != nullptr) {
+        if (p.mode == FLRELU_FWD && record != nullptr) {
             uint8_t* rp = record + plane * rec_plane;
             const int nb = (own_w + 3) / 4;
             for (int r = ty; r < own_h; r += by) {
@@ -789,8 +823,9 @@ __global__ void filtered_lrelu_kernel(const T* __restrict__ x, const T* __restri
 }
 
 // x: [planes, in_h, in_w]; y: [planes, out_h, out_w]; record: [planes,
-// mid_h, ceil(mid_w/4)] bytes (forward: written when not null; backward:
-// read, required). bias: [channels] or null (forward only). f1, f2:
+// mid_h, ceil(mid_w/4)] bytes (mode FLRELU_FWD: written when not null;
+// FLRELU_BWD, FLRELU_LIN: read, required). bias: [channels] or null (not
+// in FLRELU_BWD). f1, f2:
 // float32 device taps or null for the identity filter [1]. `tile` is the
 // plan's square output tile (a multiple of 4 / down columns in the
 // forward, so that a block's record bytes are its own).
@@ -800,15 +835,17 @@ extern "C" int filtered_lrelu_launch(
         int in_h, int in_w, int mid_h, int mid_w, int out_h, int out_w,
         int up, int pad1x, int pad1y, int t1, int flip1, float gain1,
         int down, int pad2x, int pad2y, int t2, int flip2, float gain2,
-        int backward, float slope, float gain, float clamp,
+        int mode, float slope, float gain, float clamp,
         int tile, int smem_bytes, void* stream) {
+    const bool bwd = mode == FLRELU_BWD;
     if ((dtype != 0 && dtype != 1) || planes < 0 || channels < 1 ||
         in_h <= 0 || in_w <= 0 || mid_h <= 0 || mid_w <= 0 || out_h <= 0 || out_w <= 0 ||
         up < 1 || down < 1 || t1 < 1 || t2 < 1 ||
         t1 > FLRELU_MAX_TAPS || t2 > FLRELU_MAX_TAPS ||
         (f1 == nullptr && t1 != 1) || (f2 == nullptr && t2 != 1) ||
-        (backward && (record == nullptr || bias != nullptr)) ||
-        (!backward && (pad2x != 0 || pad2y != 0 || (tile * down) % 4 != 0)) || tile < 1)
+        mode < FLRELU_FWD || mode > FLRELU_LIN ||
+        (mode != FLRELU_FWD && record == nullptr) || (bwd && bias != nullptr) ||
+        (!bwd && (pad2x != 0 || pad2y != 0 || (tile * down) % 4 != 0)) || tile < 1)
         return (int)cudaErrorInvalidValue;
     const size_t need = generic_smem_bytes(up, t1, down, t2, tile);
     if ((size_t)smem_bytes != need || need > FLRELU_MAX_SMEM_BYTES)
@@ -822,7 +859,7 @@ extern "C" int filtered_lrelu_launch(
     p.up = up; p.pad1x = pad1x; p.pad1y = pad1y; p.t1 = t1; p.flip1 = flip1;
     p.down = down; p.pad2x = pad2x; p.pad2y = pad2y; p.t2 = t2; p.flip2 = flip2;
     p.gain1 = gain1; p.gain2 = gain2;
-    p.backward = backward; p.slope = slope; p.gain = gain; p.clamp = clamp;
+    p.mode = mode; p.slope = slope; p.gain = gain; p.clamp = clamp;
     p.tile = tile; p.mt = (tile - 1) * down + t2; p.xt = (p.mt + t1 - 2 + up) / up;
     p.rec_pitch = (mid_w + 3) / 4;
 

@@ -3,8 +3,9 @@
 shadow the modules that hold the kernels' launch counters.
 
 Importing this package registers the kernels' custom ops
-(`latentaugment_torch::bias_act_fwd`, `::bias_act_bwd`, `::upfirdn2d`,
-`::filtered_lrelu_fwd`, `::filtered_lrelu_bwd`), which a program saved
+(`latentaugment_torch::bias_act_fwd`, `::bias_act_bwd`, `::bias_act_grad2`,
+`::upfirdn2d`, `::filtered_lrelu_fwd`, `::filtered_lrelu_bwd`,
+`::filtered_lrelu_lin`), which a program saved
 by `torch.export` calls: loading one needs this package imported. The
 kernels themselves are built at their first launch on the card."""
 

@@ -6,12 +6,15 @@ y = clamp(gain * act(x + b[c]), +-clamp), with the bias broadcast along
 
   * `_bias_act_ref`: plain PyTorch; autograd gives its gradient. It runs
     for CPU tensors and for `impl='ref'`.
-  * kernel K1, two Triton kernels (forward and backward), each launched
-    by a registered custom op (`latentaugment_torch::bias_act_fwd` /
-    `::bias_act_bwd`): behind `_BiasActFunction` when a gradient is
+  * kernel K1, three Triton kernels (forward, backward and the smooth
+    activations' second derivative), each launched by a registered
+    custom op (`latentaugment_torch::bias_act_fwd` / `::bias_act_bwd` /
+    `::bias_act_grad2`): behind `_BiasActFunction` when a gradient is
     needed, called directly otherwise. The backward is a Function of its
     own (`_BiasActGradFunction`), so the rectifiers' second derivatives
-    launch the backward kernel again. It runs for every CUDA tensor unless
+    launch the backward kernel again and the smooth activations' launch
+    the third kernel (`_BiasActGrad2Function`, whose own derivative, a
+    third order, raises). It runs for every CUDA tensor unless
     `impl='ref'`; there is no fallback on the card.
 
 K1 replaces the Pallas kernel `_bias_act_pallas`
@@ -33,7 +36,7 @@ the clamp.
 import functools
 import importlib
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,7 @@ from ..utils.util_easydict import EasyDict
 from . import _build
 
 _SQRT2 = 1.4142135623730951
+_SELU_SCALE, _SELU_ALPHA = 1.0507009873554804934193349852946, 1.6732632423543772848170429916717
 
 # `idx` is the activation's id inside the Triton kernels.
 activation_funcs = {
@@ -61,8 +65,9 @@ activation_funcs = {
 _ACTS_FROM_Y = ('linear', 'relu', 'lrelu')
 
 # Launches of each Triton kernel, counted where they are launched; the
-# backward kernel's launches for a second derivative count apart.
-launches = {'bias_act_fwd': 0, 'bias_act_bwd': 0, 'bias_act_bwd2': 0}
+# backward kernel's launches for a rectifier's second derivative count
+# apart, and so do the smooth activations' second-derivative kernel's.
+launches = {'bias_act_fwd': 0, 'bias_act_bwd': 0, 'bias_act_bwd2': 0, 'bias_act_grad2': 0}
 
 
 def bias_act(x, b=None, dim=1, act='linear', alpha=None, gain=None, clamp=None,
@@ -114,9 +119,48 @@ def _bias_act_ref(x, b, dim, act, alpha, gain, clamp):
     return x
 
 
+def _act_derivatives(v, act, alpha):
+    """(act'(v), act''(v)) of a smooth activation, elementwise (torch)."""
+    if act == 'tanh':
+        t = torch.tanh(v)
+        d1 = 1 - t * t
+        return d1, -2 * t * d1
+    if act in ('sigmoid', 'softplus', 'swish'):
+        s = torch.sigmoid(v)
+        ds = s * (1 - s)
+        if act == 'sigmoid':
+            return ds, ds * (1 - 2 * s)
+        if act == 'softplus':
+            return s, ds
+        return s + v * ds, ds * (2 + v * (1 - 2 * s))
+    if act in ('elu', 'selu'):
+        scale, a = (1.0, 1.0) if act == 'elu' else (_SELU_SCALE, _SELU_ALPHA)
+        e = scale * a * torch.exp(torch.clamp(v, max=0.0))
+        return torch.where(v > 0, scale, e), torch.where(v > 0, 0.0, e)
+    raise ValueError(f"{act!r} is not a smooth activation")
+
+
+def _bias_act_grad2_ref(ddx, dy, x, b, y, dim, act, alpha, gain, clamp):
+    """The plain version of the smooth activations' second-derivative
+    kernel: with v = x + b and m the clamp mask [|y| < clamp],
+    ddy = ddx * gain * act'(v) * m and dv = ddx * dy * gain * act''(v) * m,
+    in float32, returned in the inputs' dtype."""
+    v = x.float()
+    if b is not None:
+        shape = [1] * x.ndim
+        shape[dim] = -1
+        v = v + b.float().reshape(shape)
+    d1, d2 = _act_derivatives(v, act, alpha)
+    h = ddx.float() * gain
+    if clamp >= 0:
+        h = torch.where(y.float().abs() < clamp, h, 0.0)
+    return (h * d1).to(dy.dtype), (h * dy.float() * d2).to(x.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Kernel K1 (Triton), launched only through the registered custom ops
-# `latentaugment_torch::bias_act_fwd` and `::bias_act_bwd`, so that
+# `latentaugment_torch::bias_act_fwd`, `::bias_act_bwd` and
+# `::bias_act_grad2`, so that
 # `torch.export` records the launches as ops of the program (the Triton
 # launch inside is opaque to it). Their fake versions give the output's
 # shape and dtype only. They have no CPU kernel: a CPU tensor raises.
@@ -140,11 +184,25 @@ def _bias_act_bwd_impl(dy: torch.Tensor, x: Optional[torch.Tensor], b: Optional[
     return dx
 
 
+def _bias_act_grad2_impl(ddx: torch.Tensor, dy: torch.Tensor, x: torch.Tensor,
+                         b: Optional[torch.Tensor], y: torch.Tensor, dim: int, act: str,
+                         alpha: float, gain: float,
+                         clamp: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = x.contiguous()
+    ddy, dv = torch.empty_like(x, dtype=dy.dtype), torch.empty_like(x)
+    _launch_grad2(ddx.contiguous(), dy.contiguous(), x, b if b is None else b.contiguous(),
+                  y.contiguous(), ddy, dv, dim, act, alpha, gain, clamp)
+    return ddy, dv
+
+
 _bias_act_fwd_op = torch.library.custom_op(
     "latentaugment_torch::bias_act_fwd", _bias_act_fwd_impl, mutates_args=(),
     device_types="cuda")
 _bias_act_bwd_op = torch.library.custom_op(
     "latentaugment_torch::bias_act_bwd", _bias_act_bwd_impl, mutates_args=(),
+    device_types="cuda")
+_bias_act_grad2_op = torch.library.custom_op(
+    "latentaugment_torch::bias_act_grad2", _bias_act_grad2_impl, mutates_args=(),
     device_types="cuda")
 
 
@@ -156,6 +214,11 @@ def _(x, b, dim, act, alpha, gain, clamp):
 @_bias_act_bwd_op.register_fake
 def _(dy, x, b, y, dim, act, alpha, gain, clamp, counter):
     return y.new_empty(y.shape)
+
+
+@_bias_act_grad2_op.register_fake
+def _(ddx, dy, x, b, y, dim, act, alpha, gain, clamp):
+    return x.new_empty(x.shape, dtype=dy.dtype), x.new_empty(x.shape)
 
 
 class _BiasActFunction(torch.autograd.Function):
@@ -172,15 +235,13 @@ class _BiasActFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, b, y = ctx.saved_tensors
-        dim, act = ctx.cfg[:2]
-        if act in _ACTS_FROM_Y:
-            # The rectifiers' dx depends on y only through masks that are
-            # constant almost everywhere: detached, y opens no path along
-            # which a second derivative would run this backward again on
-            # zeros. (A smooth activation keeps x attached, so that its
-            # second derivative reaches _BiasActGradFunction and raises.)
-            y = y.detach()
-        dx = _BiasActGradFunction.apply(dy, x, b, y, ctx.cfg, 'bias_act_bwd')
+        dim = ctx.cfg[0]
+        # dx depends on y only through masks that are constant almost
+        # everywhere (the rectifiers' sign, the clamp): detached, y opens no
+        # path along which a second derivative would run this backward
+        # again on zeros. (A smooth activation's x stays attached: its
+        # second derivative w.r.t. x is not zero.)
+        dx = _BiasActGradFunction.apply(dy, x, b, y.detach(), ctx.cfg, 'bias_act_bwd')
         db = None
         if ctx.needs_input_grad[1]:
             dims = [d for d in range(dx.ndim) if d != dim]
@@ -189,34 +250,56 @@ class _BiasActFunction(torch.autograd.Function):
 
 
 class _BiasActGradFunction(torch.autograd.Function):
-    """dx = the backward kernel on dy (NVIDIA's BiasActCudaGrad design).
+    """dx = the backward kernel on dy (NVIDIA's BiasActCudaGrad design),
+    dx = dy * gain * act'(x + b) * [|y| < clamp].
 
-    For linear, relu and lrelu, with or without clamp,
-    dx = dy * gain * act'(x + b) * [|y| < clamp] is linear in dy, and its
-    mask is piecewise constant in y: the derivative of dx with respect to
-    dy is the same kernel applied to the incoming gradient, and the one
-    with respect to x, b or y is zero. So second derivatives (R1,
+    For linear, relu and lrelu, with or without clamp, dx is linear in dy
+    and its mask is piecewise constant in y: the derivative of dx with
+    respect to dy is the same kernel applied to the incoming gradient, and
+    the one with respect to x, b or y is zero. So second derivatives (R1,
     path-length regularisation) launch this kernel again, counted under
-    `counter`. The smooth activations' dx is not linear in that way; their
-    second derivative on the card raises."""
+    `counter`. For the smooth activations dx also depends on x + b through
+    act': their second derivative launches the third kernel
+    (`_BiasActGrad2Function`), which gives both the derivative w.r.t. dy
+    and the one w.r.t. x + b (summed for b)."""
 
     @staticmethod
     def forward(ctx, dy, x, b, y, cfg, counter):
         dx = torch.ops.latentaugment_torch.bias_act_bwd(dy, x, b, y, *cfg, counter)
-        ctx.save_for_backward(x, b, y)
+        ctx.save_for_backward(x, b, y, None if cfg[1] in _ACTS_FROM_Y else dy)
         ctx.cfg = cfg
         return dx
 
     @staticmethod
     def backward(ctx, ddx):
-        act = ctx.cfg[1]
-        if act not in _ACTS_FROM_Y:
-            raise NotImplementedError(
-                f"kernel K1 has no second derivative for act={act!r} (only "
-                f"{', '.join(_ACTS_FROM_Y)}); use impl='ref'")
-        x, b, y = ctx.saved_tensors
-        ddy = _BiasActGradFunction.apply(ddx, x, b, y, ctx.cfg, 'bias_act_bwd2')
-        return ddy, None, None, None, None, None
+        x, b, y, dy = ctx.saved_tensors
+        dim, act = ctx.cfg[:2]
+        if act in _ACTS_FROM_Y:
+            ddy = _BiasActGradFunction.apply(ddx, x, b, y, ctx.cfg, 'bias_act_bwd2')
+            return ddy, None, None, None, None, None
+        ddy, dv = _BiasActGrad2Function.apply(ddx, dy, x, b, y, ctx.cfg)
+        db = None
+        if ctx.needs_input_grad[2]:
+            dims = [d for d in range(dv.ndim) if d != dim]
+            db = dv.float().sum(dims).to(dv.dtype)
+        return ddy, dv, db, None, None, None
+
+
+class _BiasActGrad2Function(torch.autograd.Function):
+    """(ddy, dv) = the smooth activations' second-derivative kernel: one
+    pass over ddx, dy, x (+ b) and, with clamp, y. A derivative of these
+    (a third order) has no kernel and raises."""
+
+    @staticmethod
+    def forward(ctx, ddx, dy, x, b, y, cfg):
+        ctx.act = cfg[1]
+        return torch.ops.latentaugment_torch.bias_act_grad2(ddx, dy, x, b, y, *cfg)
+
+    @staticmethod
+    def backward(ctx, dddy, ddv):
+        raise NotImplementedError(
+            f"kernel K1 has no third derivative for act={ctx.act!r} (second order is the "
+            "most it differentiates a smooth activation); use impl='ref'")
 
 
 def _geometry(x, dim):
@@ -227,7 +310,7 @@ _BLOCK = 1024
 
 
 def _launch_fwd(x, b, y, dim, act, alpha, gain, clamp):
-    triton, fwd, _ = _triton_kernels()
+    triton, fwd, _, _ = _triton_kernels()
     n, c, inner = _geometry(x, dim)
     if n == 0:
         return
@@ -240,7 +323,7 @@ def _launch_fwd(x, b, y, dim, act, alpha, gain, clamp):
 
 
 def _launch_bwd(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
-    triton, _, bwd = _triton_kernels()
+    triton, _, bwd, _ = _triton_kernels()
     n, c, inner = _geometry(y, dim)
     if n == 0:
         return
@@ -256,9 +339,22 @@ def _launch_bwd(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
     launches[counter] += 1
 
 
+def _launch_grad2(ddx, dy, x, b, y, ddy, dv, dim, act, alpha, gain, clamp):
+    triton, _, _, grad2 = _triton_kernels()
+    n, c, inner = _geometry(x, dim)
+    if n == 0:
+        return
+    with torch.cuda.device(x.device):
+        grad2[(triton.cdiv(n, _BLOCK),)](
+            ddx, dy, x, b if b is not None else x, y, ddy, dv, n, c, inner, alpha, gain, clamp,
+            ACT=activation_funcs[act].idx, HAS_BIAS=b is not None, CLAMP=clamp >= 0,
+            BLOCK=_BLOCK, num_warps=4)
+    launches['bias_act_grad2'] += 1
+
+
 @functools.lru_cache(maxsize=None)
 def _triton_kernels():
-    """Import Triton and define the two kernels (first CUDA launch only).
+    """Import Triton and define the three kernels (first CUDA launch only).
 
     Triton resolves the names a kernel uses through the kernel's module
     globals, so `triton` and `tl` are bound there rather than as locals of
@@ -351,4 +447,51 @@ def _triton_kernels():
             g = tl.where(tl.abs(y) < clamp, g, 0.0)
         tl.store(dx_ptr + offs, g.to(dx_ptr.dtype.element_ty), mask=mask)
 
-    return triton, bias_act_fwd, bias_act_bwd
+    @triton.jit
+    def bias_act_grad2(ddx_ptr, dy_ptr, x_ptr, b_ptr, y_ptr, ddy_ptr, dv_ptr, n, C, inner,
+                       alpha, gain, clamp, ACT: tl.constexpr, HAS_BIAS: tl.constexpr,
+                       CLAMP: tl.constexpr, BLOCK: tl.constexpr):
+        # The smooth activations (ACT 3-8) only: a1 = act'(v), a2 = act''(v).
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        h = tl.load(ddx_ptr + offs, mask=mask, other=0.0).to(tl.float32) * gain
+        d = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        if HAS_BIAS:
+            c = (offs // inner) % C
+            v += tl.load(b_ptr + c, mask=mask, other=0.0).to(tl.float32)
+        if ACT == 3:
+            e = tl.exp(-2.0 * tl.abs(v))
+            t = (1.0 - e) / (1.0 + e)
+            t = tl.where(v < 0, -t, t)
+            a1 = 1.0 - t * t
+            a2 = -2.0 * t * a1
+        elif ACT == 5 or ACT == 6:
+            if ACT == 5:
+                scale = 1.0
+                e = tl.exp(tl.minimum(v, 0.0))
+            else:
+                scale = 1.0507009873554804934193349852946
+                e = 1.0507009873554804934193349852946 * 1.6732632423543772848170429916717 \
+                    * tl.exp(tl.minimum(v, 0.0))
+            a1 = tl.where(v > 0, scale, e)
+            a2 = tl.where(v > 0, 0.0, e)
+        else:
+            s = tl.sigmoid(v)
+            ds = s * (1.0 - s)
+            if ACT == 4:
+                a1 = ds
+                a2 = ds * (1.0 - 2.0 * s)
+            elif ACT == 7:
+                a1 = s
+                a2 = ds
+            else:
+                a1 = s + v * ds
+                a2 = ds * (2.0 + v * (1.0 - 2.0 * s))
+        if CLAMP:
+            y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            h = tl.where(tl.abs(y) < clamp, h, 0.0)
+        tl.store(ddy_ptr + offs, (h * a1).to(ddy_ptr.dtype.element_ty), mask=mask)
+        tl.store(dv_ptr + offs, (h * d * a2).to(dv_ptr.dtype.element_ty), mask=mask)
+
+    return triton, bias_act_fwd, bias_act_bwd, bias_act_grad2

@@ -23,14 +23,23 @@ Two implementations sit side by side:
   * kernel K3, `csrc/filtered_lrelu.cu`, hand-written CUDA for sm_90a,
     built with nvcc at first use and called through ctypes inside the
     registered custom ops `latentaugment_torch::filtered_lrelu_fwd` /
-    `::filtered_lrelu_bwd`, behind `_FilteredLReluFunction` when a
-    gradient is needed. One launch does the whole op for a tile of
-    outputs with the up-rate canvas in shared memory; the backward is
-    the same kernel in its second mode, reading the sign/clamp record
-    the forward writes when autograd needs it. It runs for every CUDA
-    tensor with 1-D filters unless `impl='ref'`; there is no fallback on
-    the card. It takes 1-D (separable) filters and raises for 2-D ones
-    when handed them directly, and for filters that require grad.
+    `::filtered_lrelu_bwd` / `::filtered_lrelu_lin`, behind
+    `_FilteredLReluFunction` when a gradient is needed. One launch does
+    the whole op for a tile of outputs with the up-rate canvas in shared
+    memory; the backward is the same kernel in its second mode, reading
+    the sign/clamp record the forward writes when autograd needs it. The
+    backward is linear in dy: its derivative is the kernel's third mode,
+    the linearised forward (the forward's geometry, the backward's middle
+    step on the same record), whose own derivative is the backward again,
+    so derivatives of any order launch K3 (`_FilteredLReluGradFunction`,
+    `_FilteredLReluLinFunction`). Filter gradients come, as the JAX
+    package's `_fused_bwd` computes them, from the decomposed form
+    differentiated w.r.t. the filters (K1 and K2 on the card, K2 giving
+    the filter cotangent); at second order from the plain linearised
+    form `_linearised` through K2. It runs for every CUDA tensor with 1-D
+    filters unless `impl='ref'`; there is no fallback on the card. It
+    takes 1-D (separable) filters and raises for 2-D ones when handed
+    them directly.
 
 The record holds 2 bits per up-rate pixel (bit 0: not positive, bit 1:
 clamped), four pixels of a row per byte: [planes, mid_h, ceil(mid_w/4)]
@@ -54,16 +63,16 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from . import _build, _taps
 from .bias_act import bias_act
 from .upfirdn2d import _get_filter_size, _parse_padding, upfirdn2d
 
-# Launches of kernel K3, counted where launched, by direction and by the
-# plan's variant (both directions together); and the calls on a CUDA
-# tensor that took the decomposed form through K1 and K2 (2-D filters).
-launches = {'filtered_lrelu_fwd': 0, 'filtered_lrelu_bwd': 0}
+# Launches of kernel K3, counted where launched, by mode (forward,
+# backward, linearised forward) and by the plan's variant (all modes
+# together); and the calls on a CUDA tensor that took the decomposed form
+# through K1 and K2 (2-D filters).
+launches = {'filtered_lrelu_fwd': 0, 'filtered_lrelu_bwd': 0, 'filtered_lrelu_lin': 0}
 decomposed_calls = {'filtered_lrelu_decomposed': 0}
 variant_launches = {'u2t12_d2t12': 0, 'u4t24_d2t12': 0, 'u2t12_d4t24': 0,
                     'u1t1_d1t1': 0, 'generic': 0}
@@ -104,11 +113,7 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
         decomposed_calls['filtered_lrelu_decomposed'] += 1
         return _decomposed(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter,
                            impl='auto')
-    for f in (fu, fd):
-        if f is not None and f.requires_grad:
-            raise ValueError("kernel K3 treats the filters as constants; "
-                             "use impl='ref' to differentiate w.r.t. them")
-    if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, b, fu, fd)):
         return _FilteredLReluFunction.apply(x, fu, fd, b, up, down, padding, gain, slope,
                                             clamp, bool(flip_filter))
     return torch.ops.latentaugment_torch.filtered_lrelu_fwd(
@@ -169,6 +174,7 @@ def _decomposed(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter
 # Kernel K3 (CUDA C++, csrc/filtered_lrelu.cu).
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MODE_CODE = {'fwd': 0, 'bwd': 1, 'lin': 2}  # FLRELU_FWD / _BWD / _LIN in the .cu file
 _MAX_TAPS = 64  # FLRELU_MAX_TAPS in the .cu file
 _MAX_SMEM_BYTES = 232448  # 227 KB, the most a block can take
 # The tile search keeps a tiled block under this, so that two fit an SM.
@@ -358,8 +364,10 @@ def _tiled_taps(sp):
             _taps.c_floats(c2, 24), jx, jy)
 
 
-def _launch(x, bias, record, sp, slope, gain, clamp):
-    """One launch of K3; returns the output [N, C, *sp['out_hw']]."""
+def _launch(x, bias, record, sp, slope, gain, clamp, mode):
+    """One launch of K3 in `mode` ('fwd', 'bwd' or 'lin': the forward's
+    geometry with the backward's middle step); returns the output
+    [N, C, *sp['out_hw']]."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel K3 takes float32 or bfloat16, got {x.dtype}")
     if bias is not None and bias.dtype != x.dtype:
@@ -382,7 +390,6 @@ def _launch(x, bias, record, sp, slope, gain, clamp):
             n * c, mid_h, -(-mid_w // 4)) or not record.is_contiguous()):
         raise ValueError(f"record {tuple(record.shape)} {record.dtype} does not match the "
                          f"packed up-rate canvas {(n * c, mid_h, -(-mid_w // 4))}")
-    backward = sp['backward']
     plan = _plan(sp)
     variant = plan['variant']
     if plan['smem'] > _MAX_SMEM_BYTES:
@@ -394,6 +401,7 @@ def _launch(x, bias, record, sp, slope, gain, clamp):
 
     lib = _library()
     dtype, clamp_arg = _DTYPE_CODE[x.dtype], -1.0 if clamp is None else clamp
+    code = _MODE_CODE[mode]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if variant == 'generic':
@@ -404,23 +412,23 @@ def _launch(x, bias, record, sp, slope, gain, clamp):
                 dtype, n * c, c, in_h, in_w, mid_h, mid_w, out_h, out_w,
                 sp['up'], sp['pad1'][0], sp['pad1'][1], sp['t1'], int(sp['flip1']),
                 sp['gain1'], sp['down'], sp['pad2'][0], sp['pad2'][1], sp['t2'],
-                int(sp['flip2']), sp['gain2'], int(backward), slope, gain, clamp_arg,
+                int(sp['flip2']), sp['gain2'], code, slope, gain, clamp_arg,
                 plan['tile'], plan['smem'], stream)
         elif variant == 'u1t1_d1t1':
             err = lib.filtered_lrelu_pointwise_launch(
                 ptr(x), ptr(bias), y.data_ptr(), ptr(record), dtype, n * c, c, in_h, in_w,
-                int(backward), slope, gain, clamp_arg, stream)
+                code, slope, gain, clamp_arg, stream)
         else:
             t1x, t1y, t2, jx, jy = _tiled_taps(sp)
             err = lib.filtered_lrelu_tiled_launch(
                 ptr(x), ptr(bias), y.data_ptr(), ptr(record), dtype, n * c, c,
-                in_h, in_w, mid_h, mid_w, out_h, out_w, sp['up'], sp['down'], int(backward),
+                in_h, in_w, mid_h, mid_w, out_h, out_w, sp['up'], sp['down'], code,
                 sp['pad2'][0], sp['pad2'][1], jx, jy, plan['toh'], plan['tow'], plan['mh'],
                 plan['mw'], plan['smem'], ctypes.addressof(t1x), ctypes.addressof(t1y),
                 ctypes.addressof(t2), slope, gain, clamp_arg, stream)
     if err != 0:
         raise RuntimeError(f"filtered_lrelu kernel launch ({variant}) failed: CUDA error {err}")
-    launches['filtered_lrelu_bwd' if backward else 'filtered_lrelu_fwd'] += 1
+    launches[f'filtered_lrelu_{mode}'] += 1
     variant_launches[variant] += 1
     return y
 
@@ -436,13 +444,39 @@ def _forward_kernel(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_fi
         mid_h, mid_w = sp['mid_hw']
         record = torch.empty([x.shape[0] * x.shape[1], mid_h, -(-mid_w // 4)],
                              dtype=torch.uint8, device=x.device)
-    return _launch(x, b, record, sp, slope, gain, clamp), record
+    return _launch(x, b, record, sp, slope, gain, clamp, 'fwd'), record
 
 
 def _backward_kernel(dy, record, in_hw, fu, fd, up, down, padding, gain, slope, flip_filter):
     """K3 backward: dx for the input of size `in_hw`, from the record."""
     sp = _stage_params(in_hw, fu, fd, up, down, padding, flip_filter, backward=True)
-    return _launch(dy, None, record, sp, slope, gain, None)
+    return _launch(dy, None, record, sp, slope, gain, None, 'bwd')
+
+
+def _lin_kernel(ddx, ddb, record, fu, fd, up, down, padding, gain, slope, flip_filter):
+    """K3 linearised forward: D M U (ddx + ddb), M the derivative the
+    forward's record selects; ddb (per channel, or None) rides in the
+    bias slot."""
+    sp = _stage_params(tuple(ddx.shape[2:]), fu, fd, up, down, padding, flip_filter,
+                       backward=False)
+    return _launch(ddx, ddb, record, sp, slope, gain, None, 'lin')
+
+
+def _linearised(v, bias, record, fu, fd, up, down, padding, gain, slope, flip_filter,
+                impl='ref'):
+    """The plain form of the linearised forward, D(M * U(v + bias)): the
+    up and down FIRs as `upfirdn2d` calls with `impl`, M the derivative
+    the packed record selects (gain, times slope where bit 0 is set, 0
+    where bit 1 is), applied in float32. With impl='ref' it is the plain
+    version of K3's third mode; with impl='auto' on a CUDA tensor (K2)
+    autograd differentiates it w.r.t. the filters at second order."""
+    u = v if bias is None else v + bias.reshape(1, -1, 1, 1)
+    u = upfirdn2d(u, fu, up=up, padding=list(padding), gain=up ** 2, flip_filter=flip_filter,
+                  impl=impl)
+    bits = unpack_record(record, u.shape[3]).reshape(u.shape)
+    m = gain * torch.where((bits & 1) != 0, slope, 1.0) * ((bits & 2) == 0)
+    u = (u.float() * m).to(u.dtype)
+    return upfirdn2d(u, fd, down=down, flip_filter=flip_filter, impl=impl)
 
 
 def _record_ref(x, fu, b, up, padding, gain, slope, clamp, flip_filter):
@@ -467,11 +501,11 @@ def _record_ref(x, fu, b, up, padding, gain, slope, clamp, flip_filter):
 
 # Kernel K3 is launched only through the registered custom ops
 # `latentaugment_torch::filtered_lrelu_fwd` (the output and the record, an
-# empty uint8 tensor when not asked for) and `::filtered_lrelu_bwd`, so
-# that `torch.export` records each launch as an op of the program. Their
-# fake versions give shapes and dtypes from the shapes alone (no filter
-# value: the real ones copy the taps to the host). They have no CPU
-# kernel: a CPU tensor raises.
+# empty uint8 tensor when not asked for), `::filtered_lrelu_bwd` and
+# `::filtered_lrelu_lin`, so that `torch.export` records each launch as
+# an op of the program. Their fake versions give shapes and dtypes from
+# the shapes alone (no filter value: the real ones copy the taps to the
+# host). They have no CPU kernel: a CPU tensor raises.
 
 def _filtered_lrelu_fwd_impl(x: torch.Tensor, fu: Optional[torch.Tensor],
                              fd: Optional[torch.Tensor], b: Optional[torch.Tensor], up: int,
@@ -491,11 +525,22 @@ def _filtered_lrelu_bwd_impl(dy: torch.Tensor, record: torch.Tensor, fu: Optiona
                             slope, flip_filter)
 
 
+def _filtered_lrelu_lin_impl(ddx: torch.Tensor, ddb: Optional[torch.Tensor],
+                             record: torch.Tensor, fu: Optional[torch.Tensor],
+                             fd: Optional[torch.Tensor], up: int, down: int, padding: List[int],
+                             gain: float, slope: float, flip_filter: bool) -> torch.Tensor:
+    return _lin_kernel(ddx, ddb, record, fu, fd, up, down, tuple(padding), gain, slope,
+                       flip_filter)
+
+
 _filtered_lrelu_fwd_op = torch.library.custom_op(
     "latentaugment_torch::filtered_lrelu_fwd", _filtered_lrelu_fwd_impl, mutates_args=(),
     device_types="cuda")
 _filtered_lrelu_bwd_op = torch.library.custom_op(
     "latentaugment_torch::filtered_lrelu_bwd", _filtered_lrelu_bwd_impl, mutates_args=(),
+    device_types="cuda")
+_filtered_lrelu_lin_op = torch.library.custom_op(
+    "latentaugment_torch::filtered_lrelu_lin", _filtered_lrelu_lin_impl, mutates_args=(),
     device_types="cuda")
 
 
@@ -504,14 +549,19 @@ def _check_dtype(x):
         raise TypeError(f"kernel K3 takes float32 or bfloat16, got {x.dtype}")
 
 
+def _forward_out_shape(x, fu, fd, up, down, padding, flip_filter):
+    sp = _stage_params(tuple(x.shape[2:]), fu, fd, up, down, tuple(padding), flip_filter,
+                       backward=False)
+    return sp, [x.shape[0], x.shape[1], *sp['out_hw']]
+
+
 @_filtered_lrelu_fwd_op.register_fake
 def _(x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter, need_record):
     _check_dtype(x)
-    sp = _stage_params(tuple(x.shape[2:]), fu, fd, up, down, tuple(padding), flip_filter,
-                       backward=False)
+    sp, out = _forward_out_shape(x, fu, fd, up, down, padding, flip_filter)
     (mid_h, mid_w), n, c = sp['mid_hw'], x.shape[0], x.shape[1]
     record = [n * c, mid_h, -(-mid_w // 4)] if need_record else [0]
-    return x.new_empty([n, c, *sp['out_hw']]), x.new_empty(record, dtype=torch.uint8)
+    return x.new_empty(out), x.new_empty(record, dtype=torch.uint8)
 
 
 @_filtered_lrelu_bwd_op.register_fake
@@ -520,21 +570,123 @@ def _(dy, record, fu, fd, in_hw, up, down, padding, gain, slope, flip_filter):
     return dy.new_empty([dy.shape[0], dy.shape[1], *in_hw])
 
 
+@_filtered_lrelu_lin_op.register_fake
+def _(ddx, ddb, record, fu, fd, up, down, padding, gain, slope, flip_filter):
+    _check_dtype(ddx)
+    return ddx.new_empty(_forward_out_shape(ddx, fu, fd, up, down, padding, flip_filter)[1])
+
+
+def _filter_grads(form, v, bias, fu, fd, g, cfg, needs):
+    """(dfu, dfd) of <y, g>, y = `form` ('decomposed' or 'linearised') of
+    (v, bias, fu, fd) through K1 and K2 on the card (K2 giving the filter
+    cotangent). The decomposed form gives the first-order filter
+    gradients, as the JAX package's `_fused_bwd` computes them; the
+    linearised one, D(M * U(v + bias)) on `record`, the filter terms of
+    the backward's and of the linearised forward's derivatives. `needs`
+    says which filter; the other is None. Under create_graph the result
+    keeps its graph (in v, bias, g and the other filter)."""
+    _, up, down, padding, gain, slope, clamp, flip_filter, record = cfg
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        if not create:
+            v, bias = v.detach(), None if bias is None else bias.detach()
+            fu, fd = (None if f is None else f.detach().requires_grad_(need)
+                      for f, need in zip((fu, fd), needs))
+        if form == 'decomposed':
+            y = _decomposed(v, fu, fd, bias, up, down, padding, gain, slope, clamp, flip_filter,
+                            impl='auto')
+        else:
+            y = _linearised(v, bias, record, fu, fd, up, down, padding, gain, slope,
+                            flip_filter, impl='auto')
+        wrt = [f for f, need in zip((fu, fd), needs) if need]
+        got = iter(torch.autograd.grad(y, wrt, g, create_graph=create, allow_unused=True))
+        return tuple(next(got) if need else None for need in needs)
+
+
 class _FilteredLReluFunction(torch.autograd.Function):
+    """K3 forward (writing the record); its backward launches K3's backward
+    through `_FilteredLReluGradFunction`, so that a second derivative
+    reaches the linearised forward."""
+
     @staticmethod
     def forward(ctx, x, fu, fd, b, up, down, padding, gain, slope, clamp, flip_filter):
         y, record = torch.ops.latentaugment_torch.filtered_lrelu_fwd(
             x, fu, fd, b, up, down, list(padding), gain, slope, clamp, flip_filter, True)
-        ctx.save_for_backward(fu, fd, record)
-        ctx.cfg = (list(x.shape[2:]), up, down, list(padding), gain, slope, flip_filter)
+        # x and b serve only the filter gradients.
+        filters = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        ctx.save_for_backward(fu, fd, record, x if filters else None, b if filters else None)
+        ctx.cfg = (list(x.shape[2:]), up, down, list(padding), gain, slope, clamp, flip_filter)
         return y
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
-        fu, fd, record = ctx.saved_tensors
-        in_hw, up, down, padding, gain, slope, flip_filter = ctx.cfg
+        fu, fd, record, x, b = ctx.saved_tensors
+        need_x, need_fu, need_fd, need_b = ctx.needs_input_grad[:4]
+        dx = db = dfu = dfd = None
+        if need_x or need_b:
+            out = _FilteredLReluGradFunction.apply(dy, record, fu, fd, ctx.cfg, need_b)
+            dx, db = out if need_b else (out, None)
+        if need_fu or need_fd:
+            dfu, dfd = _filter_grads('decomposed', x, b, fu, fd, dy, (*ctx.cfg, None),
+                                     (need_fu, need_fd))
+        return (dx if need_x else None), dfu, dfd, db, None, None, None, None, None, None, None
+
+
+class _FilteredLReluGradFunction(torch.autograd.Function):
+    """dx = K3's backward on dy (and db = dx summed per channel when
+    `with_db`). Linear in dy: its derivative is K3's linearised forward on
+    the same record, the cotangent of db in its bias slot; the one w.r.t.
+    the record's input is zero almost everywhere (as the lrelu and clamp
+    derivatives of the JAX decomposed VJP are)."""
+
+    @staticmethod
+    def forward(ctx, dy, record, fu, fd, cfg, with_db):
+        in_hw, up, down, padding, gain, slope, _, flip_filter = cfg
         dx = torch.ops.latentaugment_torch.filtered_lrelu_bwd(
             dy, record, fu, fd, in_hw, up, down, padding, gain, slope, flip_filter)
-        db = dx.sum(dim=(0, 2, 3)) if ctx.needs_input_grad[3] else None
-        return dx, None, None, db, None, None, None, None, None, None, None
+        # dy serves only the filter gradients.
+        filters = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(record, fu, fd, dy if filters else None)
+        ctx.cfg = cfg
+        return (dx, dx.sum(dim=(0, 2, 3))) if with_db else dx
+
+    @staticmethod
+    def backward(ctx, ddx, ddb=None):
+        record, fu, fd, dy = ctx.saved_tensors
+        ddy = dfu = dfd = None
+        if ctx.needs_input_grad[0]:
+            ddy = _FilteredLReluLinFunction.apply(ddx, ddb, record, fu, fd, ctx.cfg)
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dfu, dfd = _filter_grads('linearised', ddx, ddb, fu, fd, dy, (*ctx.cfg, record),
+                                     ctx.needs_input_grad[2:4])
+        return ddy, None, dfu, dfd, None, None
+
+
+class _FilteredLReluLinFunction(torch.autograd.Function):
+    """ddy = K3's linearised forward on ddx (+ ddb per channel): D M U.
+    Its adjoint is the backward on the same record, so its derivative
+    launches `_FilteredLReluGradFunction` again: any order alternates
+    between K3's two modes."""
+
+    @staticmethod
+    def forward(ctx, ddx, ddb, record, fu, fd, cfg):
+        _, up, down, padding, gain, slope, _, flip_filter = cfg
+        ddy = torch.ops.latentaugment_torch.filtered_lrelu_lin(
+            ddx, ddb, record, fu, fd, up, down, padding, gain, slope, flip_filter)
+        filters = ctx.needs_input_grad[3] or ctx.needs_input_grad[4]
+        ctx.save_for_backward(record, fu, fd, *((ddx, ddb) if filters else (None, None)))
+        ctx.cfg = cfg
+        return ddy
+
+    @staticmethod
+    def backward(ctx, g):
+        record, fu, fd, ddx, ddb = ctx.saved_tensors
+        need_ddx, need_ddb = ctx.needs_input_grad[:2]
+        dddx = dddb = dfu = dfd = None
+        if need_ddx or need_ddb:
+            out = _FilteredLReluGradFunction.apply(g, record, fu, fd, ctx.cfg, need_ddb)
+            dddx, dddb = out if need_ddb else (out, None)
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            dfu, dfd = _filter_grads('linearised', ddx, ddb, fu, fd, g, (*ctx.cfg, record),
+                                     ctx.needs_input_grad[3:5])
+        return (dddx if need_ddx else None), dddb, None, dfu, dfd, None

@@ -13,10 +13,13 @@ Two implementations sit side by side:
     backward are the same kernels; the backward swaps up and down, flips
     the filter and transforms the padding, as the Pallas kernel's custom
     VJP does (latentaugment_tpu/ops/upfirdn2d.py:598-614), and is itself
-    differentiable, so second derivatives launch K2 too. It runs for
-    every CUDA tensor unless `impl='ref'`; there is no fallback on the
-    card. It takes filters of up to 64 taps per axis, 1-D or 2-D, and
-    raises for larger ones.
+    differentiable, so second derivatives launch K2 too. The filter's
+    cotangent, where the filter requires grad, comes from the plain
+    version's autograd w.r.t. the filter alone, as the Pallas op computes
+    it outside its kernel (:617-623); dx stays K2. It runs for every CUDA
+    tensor unless `impl='ref'`; there is no fallback on the card. It
+    takes filters of up to 64 taps per axis, 1-D or 2-D, and raises for
+    larger ones.
 
 K2 is bound by bytes, StyleGAN3-R's radial filter by operations (`work`
 counts both). `_plan` picks, from the geometry alone, one of the
@@ -151,12 +154,9 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1,
         raise NotImplementedError(f"upfirdn2d has no kernel for {x.device}")
     if f is None:
         f = torch.ones([1, 1], dtype=torch.float32, device=x.device)
-    if f.requires_grad:
-        raise ValueError("kernel K2 treats the filter as a constant; "
-                         "use impl='ref' to differentiate w.r.t. it")
     args = (x, f, _parse_scaling(up), _parse_scaling(down), _parse_padding(padding),
             bool(flip_filter), float(gain))
-    if torch.is_grad_enabled() and x.requires_grad:
+    if torch.is_grad_enabled() and (x.requires_grad or f.requires_grad):
         return _Upfirdn2dFunction.apply(*args)
     return torch.ops.latentaugment_torch.upfirdn2d(*args)
 
@@ -487,29 +487,48 @@ def transposed_padding(x_shape, y_shape, f_size, up, down, padding):
             fh - pady0 - 1, ih * upy - oh * downy + pady0 - upy + 1)
 
 
+def filter_grad(x, f, dy, up, down, padding, flip_filter, gain):
+    """The filter's cotangent of <upfirdn2d(x, f), dy> from the plain
+    version's autograd w.r.t. f alone (the Pallas op's, :617-623). Under
+    create_graph it keeps its graph in x, dy and f (a 1-D filter acts
+    along both axes, so df depends on f)."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        if not create:
+            x, f = x.detach(), f.detach().requires_grad_(True)
+        y = _upfirdn2d_ref(x, f, up, down, padding, flip_filter, gain)
+        df, = torch.autograd.grad(y, f, dy, create_graph=create)
+    return df
+
+
 class _Upfirdn2dFunction(torch.autograd.Function):
     """K2 under autograd. The backward is this Function again (up and
     down swapped, the filter flipped, the padding transformed), so it has
     a backward of its own and derivatives of any order launch K2: R1 and
-    path-length regularisation differentiate a gradient."""
+    path-length regularisation differentiate a gradient. A filter that
+    requires grad gets `filter_grad`."""
 
     @staticmethod
     def forward(ctx, x, f, up, down, padding, flip_filter, gain):
         y = torch.ops.latentaugment_torch.upfirdn2d(x, f, up, down, padding, flip_filter, gain)
-        ctx.save_for_backward(f)
+        ctx.save_for_backward(f, x if ctx.needs_input_grad[1] else None)
         ctx.cfg = (up, down, padding, flip_filter, gain, x.shape)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        f, = ctx.saved_tensors
+        f, x = ctx.saved_tensors
         up, down, padding, flip_filter, gain, x_shape = ctx.cfg
-        p = transposed_padding(x_shape, dy.shape, _get_filter_size(f), up, down, padding)
-        dx = _Upfirdn2dFunction.apply(dy, f, down, up, p, not flip_filter, gain)
-        if dx.shape != x_shape:
-            raise RuntimeError(f"upfirdn2d backward shape {tuple(dx.shape)} "
-                               f"!= input shape {tuple(x_shape)}")
-        return dx, None, None, None, None, None, None
+        dx = df = None
+        if ctx.needs_input_grad[0]:
+            p = transposed_padding(x_shape, dy.shape, _get_filter_size(f), up, down, padding)
+            dx = _Upfirdn2dFunction.apply(dy, f, down, up, p, not flip_filter, gain)
+            if dx.shape != x_shape:
+                raise RuntimeError(f"upfirdn2d backward shape {tuple(dx.shape)} "
+                                   f"!= input shape {tuple(x_shape)}")
+        if ctx.needs_input_grad[1]:
+            df = filter_grad(x, f, dy, up, down, padding, flip_filter, gain)
+        return dx, df, None, None, None, None, None
 
 
 # ----------------------------------------------------------------------------

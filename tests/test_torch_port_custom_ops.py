@@ -27,7 +27,8 @@ from latentaugment_tpu_torch.ops import upfirdn2d as up
 from test_torch_port_common import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OPS = ("bias_act_fwd", "bias_act_bwd", "upfirdn2d", "filtered_lrelu_fwd", "filtered_lrelu_bwd")
+OPS = ("bias_act_fwd", "bias_act_bwd", "bias_act_grad2", "upfirdn2d", "filtered_lrelu_fwd",
+       "filtered_lrelu_bwd", "filtered_lrelu_lin")
 META = torch.device("meta")
 bf16, f32 = torch.bfloat16, torch.float32
 
@@ -63,6 +64,10 @@ def test_bias_act_fakes_match_the_plain_version(case):
     _same(y, want)
     saved_x = x if act not in ba._ACTS_FROM_Y else None
     _same(_op("bias_act_bwd")(y, saved_x, b, y, *cfg, "bias_act_bwd"), x)
+    if saved_x is not None:  # a smooth activation's second derivative: (ddy, dv)
+        for got, want in zip(_op("bias_act_grad2")(y, y, x, b, y, *cfg),
+                             ba._bias_act_grad2_ref(y, y, x, b, y, *cfg)):
+            _same(got, want)
 
 
 _F4 = up.setup_filter([1, 3, 3, 1], separable=True)
@@ -128,6 +133,10 @@ def test_filtered_lrelu_fakes_match_the_plain_version(case):
     dx = _op("filtered_lrelu_bwd")(want, record, fu, fd, list(shape[2:]), layer.up_factor,
                                    layer.down_factor, list(padding), gain, slope, False)
     _same(dx, x)
+    # The linearised forward (the backward's derivative): the forward's shape.
+    ddy = _op("filtered_lrelu_lin")(x, b, record, fu, fd, layer.up_factor, layer.down_factor,
+                                    list(padding), gain, slope, False)
+    _same(ddy, want)
 
 
 def test_fakes_refuse_what_the_kernels_refuse():
@@ -162,11 +171,14 @@ def test_op_on_a_cpu_tensor_raises(name):
     args = {
         "bias_act_fwd": (x, None, 1, "lrelu", 0.2, 1.0, -1.0),
         "bias_act_bwd": (x, None, None, x, 1, "lrelu", 0.2, 1.0, -1.0, "bias_act_bwd"),
+        "bias_act_grad2": (x, x, x, None, x, 1, "tanh", 0.0, 1.0, -1.0),
         "upfirdn2d": (x, f, [1, 1], [1, 1], [1, 2, 1, 2], False, 1.0),
         "filtered_lrelu_fwd": (x, None, None, None, 1, 1, [0, 0, 0, 0], 1.0, 0.2, None, False,
                                False),
         "filtered_lrelu_bwd": (x, torch.zeros([2, 8, 2], dtype=torch.uint8), None, None,
                                [8, 8], 1, 1, [0, 0, 0, 0], 1.0, 0.2, False),
+        "filtered_lrelu_lin": (x, None, torch.zeros([2, 8, 2], dtype=torch.uint8), None, None,
+                               1, 1, [0, 0, 0, 0], 1.0, 0.2, False),
     }[name]
     n = {k: dict(c) for k, c in (("ba", ba.launches), ("up", up.launches),
                                  ("fl", fl.launches))}

@@ -62,8 +62,10 @@ def ops_on_cpu():
     from torch.library import _scoped_library
 
     impls = {"bias_act_fwd": ba._bias_act_fwd_impl, "bias_act_bwd": ba._bias_act_bwd_impl,
+             "bias_act_grad2": ba._bias_act_grad2_impl,
              "upfirdn2d": up._upfirdn2d_impl, "filtered_lrelu_fwd": fl._filtered_lrelu_fwd_impl,
-             "filtered_lrelu_bwd": fl._filtered_lrelu_bwd_impl}
+             "filtered_lrelu_bwd": fl._filtered_lrelu_bwd_impl,
+             "filtered_lrelu_lin": fl._filtered_lrelu_lin_impl}
     with _scoped_library("latentaugment_torch", "IMPL") as lib:
         for name, impl in impls.items():
             lib.impl(name, impl, "CPU")
@@ -128,19 +130,29 @@ def test_filtered_lrelu_sources_match_plain(emulated, name, mode):
     dx_r, = torch.autograd.grad(y_r, xr, dy)
     rec_r = fl._record_ref(x, fu, b, up_, pad, gain, slope, clamp, flip)
 
+    # The linearised forward (the backward's derivative) on a random ddx
+    # and bias cotangent, against its plain form at the same record.
+    ddx = torch.randn(shape, generator=g).to(dtype)
+    ddb = torch.randn([shape[1]], generator=g).to(dtype)
+    ddy_r = fl._linearised(ddx, ddb, rec_r, fu, fd, up_, down, pad, gain, slope, flip)
+
     n, nv = dict(fl.launches), dict(fl.variant_launches)
     y_k, rec_k = fl._forward_kernel(x, fu, fd, b, up_, down, pad, gain, slope, clamp, flip,
                                     need_record=True)
     dx_k = fl._backward_kernel(dy, rec_r, tuple(shape[2:]), fu, fd, up_, down, pad, gain,
                                slope, flip)
+    ddy_k = fl._lin_kernel(ddx, ddb, rec_r, fu, fd, up_, down, pad, gain, slope, flip)
     assert fl.launches == {"filtered_lrelu_fwd": n["filtered_lrelu_fwd"] + 1,
-                           "filtered_lrelu_bwd": n["filtered_lrelu_bwd"] + 1}
-    nv[fwd_variant] += 1
+                           "filtered_lrelu_bwd": n["filtered_lrelu_bwd"] + 1,
+                           "filtered_lrelu_lin": n["filtered_lrelu_lin"] + 1}
+    nv[fwd_variant] += 2  # the linearised forward runs the forward's geometry
     nv[bwd_variant] += 1
     assert fl.variant_launches == nv
     assert y_k.shape == y_r.shape and y_k.dtype == dtype and dx_k.shape == x.shape
+    assert ddy_k.shape == y_r.shape and ddy_k.dtype == dtype
     assert _rel_err(y_k, y_r.detach()) <= TOL[dtype]
     assert _rel_err(dx_k, dx_r) <= TOL[dtype]
+    assert _rel_err(ddy_k, ddy_r) <= TOL[dtype]
     mid_w = fl._geometry(tuple(shape[2:]), tu, td, up_, down, pad, False)["mid_hw"][1]
     assert rec_k.shape == rec_r.shape
     differ = fl.unpack_record(rec_k, mid_w) != fl.unpack_record(rec_r, mid_w)
@@ -605,11 +617,20 @@ def _bias_act_bwd_stub(dy, x, b, y, dx, dim, act, alpha, gain, clamp, counter):
     elif act == "lrelu":
         g = torch.where(yf * gain > 0, g, g * alpha)
     elif act != "linear":
-        raise NotImplementedError(act)
+        v = x.float() + (0.0 if b is None else b.float().reshape(-1, *[1] * (x.ndim - dim - 1)))
+        g = g * ba._act_derivatives(v, act, alpha)[0]
     if clamp >= 0:
         g = torch.where(yf.abs() < clamp, g, 0.0)
     dx.copy_(g)
     ba.launches[counter] += 1
+
+
+def _bias_act_grad2_stub(ddx, dy, x, b, y, ddy, dv, dim, act, alpha, gain, clamp):
+    """The third Triton kernel's launcher with its plain version in place."""
+    got = ba._bias_act_grad2_ref(ddx, dy, x, b, y, dim, act, alpha, gain, clamp)
+    ddy.copy_(got[0])
+    dv.copy_(got[1])
+    ba.launches["bias_act_grad2"] += 1
 
 
 @pytest.mark.parametrize("clamp", [None, 0.5], ids=["noclamp", "clamp"])
@@ -629,7 +650,8 @@ def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, op
     got = _second_order(lambda x: ba._BiasActFunction.apply(x, b, *cfg), x, dy1, dy2)
     assert ba.launches == {"bias_act_fwd": n["bias_act_fwd"] + 1,
                            "bias_act_bwd": n["bias_act_bwd"] + 1,
-                           "bias_act_bwd2": n["bias_act_bwd2"] + 1}
+                           "bias_act_bwd2": n["bias_act_bwd2"] + 1,
+                           "bias_act_grad2": n["bias_act_grad2"]}
     for k, r in zip(got, ref):
         torch.testing.assert_close(k, r, rtol=1e-6, atol=1e-6)
     assert not got[2].any()  # d/dx of dx is zero for the rectifiers
@@ -645,11 +667,201 @@ def test_bias_act_second_derivative_launches_the_backward_kernel(monkeypatch, op
     torch.testing.assert_close(gdy, gdyr, rtol=1e-6, atol=1e-6)
 
 
-def test_bias_act_second_derivative_of_a_smooth_activation_raises(monkeypatch, ops_on_cpu):
+SMOOTH_ACTS = ["tanh", "sigmoid", "elu", "selu", "softplus", "swish"]
+
+
+def _stub_bias_act(monkeypatch):
     monkeypatch.setattr(ba, "_launch_fwd", _bias_act_fwd_stub)
-    monkeypatch.setattr(ba, "_launch_bwd", lambda *a, **k: None)
+    monkeypatch.setattr(ba, "_launch_bwd", _bias_act_bwd_stub)
+    monkeypatch.setattr(ba, "_launch_grad2", _bias_act_grad2_stub)
+
+
+@pytest.mark.parametrize("clamp", [None, 0.5], ids=["noclamp", "clamp"])
+@pytest.mark.parametrize("act", SMOOTH_ACTS)
+def test_bias_act_second_derivative_of_a_smooth_activation(monkeypatch, ops_on_cpu, act, clamp):
+    """A smooth activation's second derivative launches the third kernel
+    once (its plain version, `_bias_act_grad2_ref`, in the launcher's
+    place): d/dx, d/db and d/d dy against autograd through the plain
+    version."""
+    _stub_bias_act(monkeypatch)
+    g = torch.Generator().manual_seed(len(act) + (clamp is not None))
+    x = torch.randn([3, 5, 4, 6], generator=g)
+    b = torch.randn([5], generator=g)
+    dy1, dy2 = torch.randn(x.shape, generator=g), torch.randn(x.shape, generator=g)
+    spec = ba.activation_funcs[act]
+    cfg = (1, act, spec.def_alpha, spec.def_gain, -1.0 if clamp is None else clamp)
+
+    def second(fn):
+        xg, bg, dyg = (t.clone().requires_grad_(True) for t in (x, b, dy1))
+        gx, gb = torch.autograd.grad(fn(xg, bg), (xg, bg), dyg, create_graph=True)
+        return (gx, gb) + torch.autograd.grad((gx * dy2).sum() + gb.square().sum(),
+                                              (xg, bg, dyg))
+
+    want = second(lambda x, b: ba._bias_act_ref(x, b, 1, *cfg[1:]))
+    n = dict(ba.launches)
+    got = second(lambda x, b: ba._BiasActFunction.apply(x, b, *cfg))
+    assert ba.launches == {"bias_act_fwd": n["bias_act_fwd"] + 1,
+                           "bias_act_bwd": n["bias_act_bwd"] + 1,
+                           "bias_act_bwd2": n["bias_act_bwd2"],
+                           "bias_act_grad2": n["bias_act_grad2"] + 1}
+    for k, r in zip(got, want):
+        torch.testing.assert_close(k, r, rtol=1e-5, atol=1e-6)
+    if clamp is not None:  # the clamp engages
+        assert (ba._bias_act_ref(x, b, 1, *cfg[1:]).abs() >= clamp).float().mean() > 0.05
+
+
+def test_bias_act_third_derivative_of_a_smooth_activation_raises(monkeypatch, ops_on_cpu):
+    _stub_bias_act(monkeypatch)
     x = torch.randn([2, 3, 4, 4], requires_grad=True)
     y = ba._BiasActFunction.apply(x, None, 1, "tanh", 0.0, 1.0, -1.0)
     g, = torch.autograd.grad(y.sum(), x, create_graph=True)
-    with pytest.raises(NotImplementedError, match="impl='ref'"):
-        torch.autograd.grad(g.sum(), x)
+    g2, = torch.autograd.grad(g.square().sum(), x, create_graph=True)
+    with pytest.raises(NotImplementedError, match="third derivative for act='tanh'"):
+        torch.autograd.grad(g2.sum(), x)
+
+
+# K3 under autograd through the host-built sources: the second derivative
+# (the backward's backward) is the linearised forward, the third the
+# backward again. (case, forward variant, backward variant) from
+# FLRELU_CASES.
+FLRELU_AUTOGRAD_CASES = ["L0 up2 pad(9,8)", "L3 up4 crop(-6,-9)", "toRGB", "asymmetric pad, down 1"]
+
+
+def _flrelu_setup(name, dtype, seed):
+    shape, tu, td, up_, down, pad, gain, slope, fwd_variant, bwd_variant = FLRELU_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(dtype)
+    fu = torch.randn([tu], generator=g) / (tu * up_) ** 0.5 if tu > 1 else None
+    fd = torch.randn([td], generator=g) / td ** 0.5 if td > 1 else None
+    b = torch.randn([shape[1]], generator=g).to(dtype)
+    return g, x, fu, fd, b, (up_, down, pad, gain, slope, 0.5, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", FLRELU_AUTOGRAD_CASES)
+def test_filtered_lrelu_second_derivative_through_the_sources(emulated, name, dtype):
+    """Path length's pattern through `_FilteredLReluFunction` with the
+    clamp engaged: g = (dx, db) of <y, dy1> with its graph, then the
+    derivative of <dx, dy2> + <db, db2> w.r.t. dy1. One launch of each
+    mode (the linearised forward in the forward's variant), equal to the
+    linearised kernel at K3's own record, and that kernel at the plain
+    version's record against the plain second derivative."""
+    g, x, fu, fd, b, args = _flrelu_setup(name, dtype, len(name))
+    up_, down, pad, gain, slope, clamp, flip = args
+    fwd_variant, bwd_variant = FLRELU_CASES[name][8:]
+
+    def second(fn):
+        xg, bg = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fn(xg, bg)
+        d1 = dy1.clone().requires_grad_(True)
+        gx, gb = torch.autograd.grad(y, (xg, bg), d1, create_graph=True)
+        gd, = torch.autograd.grad((gx.float() * dy2.float()).sum() + (gb.float() * db2).sum(), d1)
+        return y.detach(), gx.detach(), gd
+
+    y_shape = fl._filtered_lrelu_ref(x, fu, fd, b, *args).shape
+    dy1 = torch.randn(y_shape, generator=g).to(dtype)
+    dy2 = torch.randn(x.shape, generator=g).to(dtype)
+    db2 = torch.randn([x.shape[1]], generator=g)
+    want = second(lambda x, b: fl._filtered_lrelu_ref(x, fu, fd, b, *args))
+    n, nv = dict(fl.launches), dict(fl.variant_launches)
+    got = second(lambda x, b: fl._FilteredLReluFunction.apply(x, fu, fd, b, *args))
+    assert fl.launches == {k: v + 1 for k, v in n.items()}
+    nv[fwd_variant] += 2
+    nv[bwd_variant] += 1
+    assert fl.variant_launches == nv
+    _, rec_k = fl._forward_kernel(x, fu, fd, b, *args, need_record=True)
+    rec_r = fl._record_ref(x, fu, b, up_, pad, gain, slope, clamp, flip)
+    lin = [fl._lin_kernel(dy2, db2.to(dtype), rec, fu, fd, up_, down, pad, gain, slope, flip)
+           for rec in (rec_k, rec_r)]
+    assert got[2].dtype == dtype and torch.equal(got[2], lin[0])
+    assert _rel_err(lin[1], want[2]) <= TOL[dtype]
+    assert _rel_err(got[0], want[0]) <= TOL[dtype]
+
+
+def test_filtered_lrelu_third_derivative_through_the_sources(emulated):
+    """The linearised forward's derivative is the backward again, on the
+    same record: a third order launches forward, backward twice and the
+    linearised forward once, and holds to the plain third derivative."""
+    name = "L3 up4 crop(-6,-9)"
+    g, x, fu, fd, b, args = _flrelu_setup(name, torch.float32, 9)
+    dy1 = torch.randn(fl._filtered_lrelu_ref(x, fu, fd, b, *args).shape, generator=g)
+    dy2, dy3 = torch.randn(x.shape, generator=g), torch.randn(dy1.shape, generator=g)
+
+    def third(fn):
+        xg = x.clone().requires_grad_(True)
+        d1, d2 = dy1.clone().requires_grad_(True), dy2.clone().requires_grad_(True)
+        gx, = torch.autograd.grad(fn(xg), xg, d1, create_graph=True)
+        g2, = torch.autograd.grad(gx, d1, d2, create_graph=True)
+        return g2.detach(), torch.autograd.grad(g2, d2, dy3)[0]
+
+    want = third(lambda x: fl._filtered_lrelu_ref(x, fu, fd, b, *args))
+    n = dict(fl.launches)
+    got = third(lambda x: fl._FilteredLReluFunction.apply(x, fu, fd, b, *args))
+    assert fl.launches == dict(n, filtered_lrelu_fwd=n["filtered_lrelu_fwd"] + 1,
+                               filtered_lrelu_bwd=n["filtered_lrelu_bwd"] + 2,
+                               filtered_lrelu_lin=n["filtered_lrelu_lin"] + 1)
+    for k, r in zip(got, want):
+        assert _rel_err(k, r) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("name", ["L0 up2 pad(9,8)", "toRGB"])
+def test_filtered_lrelu_filter_gradients_through_the_sources(emulated, monkeypatch, name):
+    """Filters that require grad: dx and db stay K3's backward, dfu and dfd
+    come from the decomposed form (here on CPU tensors, so its inner
+    calls take the plain versions), and a second derivative w.r.t. the
+    filters from the linearised form; all against autograd through the
+    plain version, float32."""
+    _stub_bias_act(monkeypatch)
+    g, x, fu, fd, b, args = _flrelu_setup(name, torch.float32, 11)
+    if fu is None:
+        fu, fd = torch.ones([1]), torch.ones([1])  # toRGB's identity filters, as tensors
+    dy1 = torch.randn(fl._filtered_lrelu_ref(x, fu, fd, b, *args).shape, generator=g)
+    dy2 = torch.randn(x.shape, generator=g)
+
+    def grads(fn):
+        xg, bg, fug, fdg = (t.clone().requires_grad_(True) for t in (x, b, fu, fd))
+        d1 = dy1.clone().requires_grad_(True)
+        first = torch.autograd.grad(fn(xg, fug, fdg, bg), (xg, fug, fdg, bg), d1,
+                                    create_graph=True)
+        second = torch.autograd.grad((first[0] * dy2).sum(), (fug, fdg, d1))
+        return [t.detach() for t in first] + list(second)
+
+    want = grads(lambda x, fu, fd, b: fl._filtered_lrelu_ref(x, fu, fd, b, *args))
+    n = dict(fl.launches)
+    got = grads(lambda x, fu, fd, b: fl._FilteredLReluFunction.apply(x, fu, fd, b, *args))
+    assert fl.launches == {k: v + 1 for k, v in n.items()}
+    for k, r in zip(got, want):
+        assert k.shape == r.shape and _rel_err(k, r) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["G blur", "D skip", "upsample2d"])
+def test_upfirdn2d_filter_gradient_through_the_sources(emulated, name):
+    """A filter that requires grad: dx (and its derivative) stays K2 in
+    the case's variants, df is the plain version's; first and second
+    order against autograd through the plain version, float32."""
+    kw, fwd_variant, bwd_variant = UPFIRDN_CASES[name]
+    g = torch.Generator().manual_seed(len(name))
+    f = torch.randn([4], generator=g)
+    x = torch.randn([2, 2, 17, 13], generator=g)
+    args = (up._parse_scaling(kw["up"]), up._parse_scaling(kw["down"]),
+            up._parse_padding(kw["padding"]), False, float(kw["gain"]))
+    dy1 = torch.randn(up._upfirdn2d_ref(x, f, *args).shape, generator=g)
+    dy2 = torch.randn(x.shape, generator=g)
+
+    def grads(fn):
+        xg, fg, d1 = (t.clone().requires_grad_(True) for t in (x, f, dy1))
+        gx, gf = torch.autograd.grad(fn(xg, fg), (xg, fg), d1, create_graph=True)
+        return [gx.detach(), gf.detach()] + list(torch.autograd.grad(
+            (gx * dy2).sum() + gf.square().sum(), (xg, fg, d1), allow_unused=True))
+
+    want = grads(lambda x, f: up._upfirdn2d_ref(x, f, *args))
+    n, nv = up.launches["upfirdn2d"], dict(up.variant_launches)
+    got = grads(lambda x, f: up._Upfirdn2dFunction.apply(x, f, *args))
+    nv[fwd_variant] += 2
+    nv[bwd_variant] += 1
+    assert up.launches["upfirdn2d"] == n + 3 and up.variant_launches == nv
+    for k, r in zip(got, want):
+        if r is None:  # no path from x: K2 is linear in x
+            assert k is None or not k.any()
+            continue
+        assert _rel_err(k, r) <= 1e-5

@@ -177,8 +177,6 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     f = up.setup_filter([1, 3, 3, 1], device=cuda, separable=True)
     with pytest.raises(TypeError):
         up.upfirdn2d(torch.zeros([1, 1, 8, 8], device=cuda, dtype=torch.float16), f)
-    with pytest.raises(ValueError):
-        up.upfirdn2d(torch.zeros([1, 1, 8, 8], device=cuda), f.clone().requires_grad_(True))
     # K2's run-time generic instantiation takes at most 64 taps per axis;
     # a larger filter is refused before any launch.
     f65 = up.setup_filter([1.0] * 65, device=cuda, separable=True)
@@ -295,19 +293,50 @@ def test_bias_act_second_derivative_matches_plain(cuda, act, clamp, dtype):
     got = _second_order(fn, x, dy1, dy2, "auto")
     assert ba.launches == {"bias_act_fwd": n["bias_act_fwd"] + 1,
                            "bias_act_bwd": n["bias_act_bwd"] + 1,
-                           "bias_act_bwd2": n["bias_act_bwd2"] + 1}
+                           "bias_act_bwd2": n["bias_act_bwd2"] + 1,
+                           "bias_act_grad2": n["bias_act_grad2"]}
     want = _second_order(fn, x, dy1, dy2, "ref")
     for k, r in zip(got, want):
         assert k.dtype == dtype and _rel_err(k, r) <= TOL_GRAD[dtype]
     assert not got[1].any()
 
 
-def test_bias_act_second_derivative_of_a_smooth_activation_raises(cuda):
+@pytest.mark.parametrize("act, clamp, dtype", [
+    *((a, c, F32) for a in ("tanh", "sigmoid", "elu", "selu", "softplus", "swish")
+      for c in (None, 0.5)), ("tanh", None, BF16), ("swish", None, BF16)])
+def test_bias_act_second_derivative_of_a_smooth_activation(cuda, act, clamp, dtype):
+    """A smooth activation's second derivative launches K1's third kernel
+    once: d/dx, d/db and d/d dy against the plain version (the clamp in
+    float32 only, as above)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, dy1, dy2 = (torch.randn([4, 24, 9, 7], generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+    b = torch.randn([24], generator=g, device=cuda).to(dtype)
+
+    def second(impl):
+        xg, bg, d1 = (t.clone().requires_grad_(True) for t in (x, b, dy1))
+        y = ba.bias_act(xg, bg, act=act, clamp=clamp, impl=impl)
+        gx, gb = torch.autograd.grad(y, (xg, bg), d1, create_graph=True)
+        return (gx, gb) + torch.autograd.grad((gx.float() * dy2.float()).sum() + gb.sum(),
+                                              (xg, bg, d1))
+
+    n = dict(ba.launches)
+    got = second("auto")
+    assert ba.launches == dict(n, bias_act_fwd=n["bias_act_fwd"] + 1,
+                               bias_act_bwd=n["bias_act_bwd"] + 1,
+                               bias_act_grad2=n["bias_act_grad2"] + 1)
+    want = second("ref")
+    for k, r in zip(got, want):
+        assert k.dtype == dtype and _rel_err(k, r) <= TOL_GRAD[dtype], act
+
+
+def test_bias_act_third_derivative_of_a_smooth_activation_raises(cuda):
     x = torch.randn([2, 3, 4, 4], device=cuda, requires_grad=True)
     y = ba.bias_act(x, None, act="swish")
     g, = torch.autograd.grad(y.sum(), x, create_graph=True)
-    with pytest.raises(NotImplementedError, match="impl='ref'"):
-        torch.autograd.grad(g.sum(), x)
+    g2, = torch.autograd.grad(g.square().sum(), x, create_graph=True)
+    with pytest.raises(NotImplementedError, match="third derivative"):
+        torch.autograd.grad(g2.sum(), x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -467,8 +496,6 @@ def test_filtered_lrelu_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="1-D"):
         fl._FilteredLReluFunction.apply(x, torch.ones([4, 4], device=cuda), fu, None, 2, 2,
                                         (5, 5, 5, 5), 2 ** 0.5, 0.2, None, False)
-    with pytest.raises(ValueError, match="constants"):
-        fl.filtered_lrelu(x, fu.clone().requires_grad_(True), fu, up=2, down=2, padding=5)
     with pytest.raises(TypeError):
         fl.filtered_lrelu(x.half(), fu, fu, up=2, down=2, padding=5)
     assert fl.launches == n
@@ -522,3 +549,123 @@ def test_upfirdn2d_f2d_matches_plain(cuda, case, dtype):
     assert y_k.shape == y_r.shape and dx_k.shape == x.shape
     assert _rel_err(y_k, y_r) <= TOL[dtype]
     assert _rel_err(dx_k, dx_r) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(FLRELU_CASES))
+def test_filtered_lrelu_second_derivative_matches_plain(cuda, name, dtype):
+    """Path length's pattern: the derivative of <dx, dy2> + <db, db2>
+    w.r.t. dy1 is K3's linearised forward, launched once in the forward's
+    variant; at K3's own record it is that kernel exactly, and at the
+    plain version's record it holds to the plain second derivative."""
+    x, fu, fd, b, kw = _flrelu_inputs(cuda, name, dtype, 9)
+    gain = kw["gain"] if kw["gain"] is not None else 2 ** 0.5
+    args = (kw["up"], kw["down"], kw["padding"], gain, kw["slope"])
+    g = torch.Generator(device=cuda).manual_seed(10)
+    dy1 = torch.randn(fl.filtered_lrelu(x, fu, fd, b, impl="ref", **kw).shape, generator=g,
+                      device=cuda).to(dtype)
+    dy2 = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+    db2 = torch.randn([x.shape[1]], generator=g, device=cuda)
+
+    def second(impl):
+        xg, bg, d1 = (t.clone().requires_grad_(True) for t in (x, b, dy1))
+        y = fl.filtered_lrelu(xg, fu, fd, bg, impl=impl, **kw)
+        gx, gb = torch.autograd.grad(y, (xg, bg), d1, create_graph=True)
+        return torch.autograd.grad((gx.float() * dy2.float()).sum() + (gb.float() * db2).sum(),
+                                   d1)[0]
+
+    n, nv = dict(fl.launches), dict(fl.variant_launches)
+    got = second("auto")
+    assert fl.launches == {k: v + 1 for k, v in n.items()}
+    fwd_variant, bwd_variant = FLRELU_VARIANTS[name]
+    nv[fwd_variant] += 2
+    nv[bwd_variant] += 1
+    assert fl.variant_launches == nv
+    want = second("ref")
+    _, rec_k = fl._forward_kernel(x, fu, fd, b, *args, None, False, need_record=True)
+    rec_r = fl._record_ref(x, fu, b, kw["up"], kw["padding"], gain, kw["slope"], None, False)
+    lin_k = fl._lin_kernel(dy2, db2.to(dtype), rec_k, fu, fd, *args, False)
+    lin_r = fl._lin_kernel(dy2, db2.to(dtype), rec_r, fu, fd, *args, False)
+    assert got.dtype == dtype and torch.equal(got, lin_k)
+    assert _rel_err(lin_r, want) <= TOL_GRAD[dtype]
+    plain = fl._linearised(dy2, db2.to(dtype), rec_r, fu, fd, *args, False)
+    assert _rel_err(lin_r, plain) <= TOL_FL[dtype]
+
+
+@pytest.mark.parametrize("name", ["L0 up2 pad(9,8)", "L10 up4 crop(-6,-9)"])
+def test_filtered_lrelu_filter_gradients_match_plain(cuda, name):
+    """Filters that require grad (float32): dx and db from K3's backward,
+    dfu and dfd from the decomposed form through K1 and K2, against the
+    plain version."""
+    x, fu, fd, b, kw = _flrelu_inputs(cuda, name, torch.float32, 12)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    dy = torch.randn(fl.filtered_lrelu(x, fu, fd, b, impl="ref", **kw).shape, generator=g,
+                     device=cuda)
+
+    def grads(impl):
+        ts = [t.clone().requires_grad_(True) for t in (x, fu, fd, b)]
+        return torch.autograd.grad(fl.filtered_lrelu(*ts, impl=impl, **kw), ts, dy)
+
+    n = dict(fl.launches)
+    got = grads("auto")
+    assert fl.launches == dict(n, filtered_lrelu_fwd=n["filtered_lrelu_fwd"] + 1,
+                               filtered_lrelu_bwd=n["filtered_lrelu_bwd"] + 1)
+    for k, r in zip(got, grads("ref")):
+        assert _rel_err(k, r) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_upfirdn2d_filter_gradient_matches_plain(cuda, dtype):
+    """A filter that requires grad at the G blur: dx is K2, df the plain
+    version's autograd w.r.t. the filter alone."""
+    f = up.setup_filter([1, 3, 3, 1], device=cuda, separable=True)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn([4, 16, 65, 65], generator=g, device=cuda).to(dtype)
+    dy = torch.randn([4, 16, 64, 64], generator=g, device=cuda).to(dtype)
+
+    def grads(impl):
+        xg, fg = x.clone().requires_grad_(True), f.clone().requires_grad_(True)
+        return torch.autograd.grad(up.upfirdn2d(xg, fg, padding=1, gain=4, impl=impl), (xg, fg),
+                                   dy)
+
+    n = dict(up.variant_launches)
+    got = grads("auto")
+    assert up.variant_launches == dict(n, u1d1=n["u1d1"] + 2)
+    for k, r in zip(got, grads("ref")):
+        assert _rel_err(k, r) <= TOL_GRAD[dtype]
+
+
+def test_sg3t_path_length_gradient_matches_plain(cuda):
+    """The SG3-T generator (a few channels, 64x64) differentiated twice as
+    `loss_g_pl` does: K3's linearised forward in every layer but toRGB,
+    the penalty's gradient w.r.t. every weight against the plain
+    versions, float32."""
+    from latentaugment_tpu_torch.models.stylegan3 import networks as net3
+
+    torch.backends.cudnn.deterministic = True
+    cfg = net3.generator_config(img_resolution=64, num_layers=6, channel_base=2048,
+                                channel_max=32, num_fp16_res=0, z_dim=32, w_dim=32)
+    G = net3.Generator(cfg, seed=3).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    z = torch.randn([2, 32], generator=g, device=cuda)
+    noise = torch.randn([2, cfg.img_channels, 64, 64], generator=g, device=cuda) / 64
+
+    def penalty_grads(impl):
+        net3.set_impl(G, impl)
+        ws = G.mapping(z, None)
+        img = G.synthesis(ws)
+        pl, = torch.autograd.grad((img * noise).sum(), ws, create_graph=True)
+        pen = (pl.square().sum(dim=2).mean(dim=1).sqrt() - 0.5).square().mean()
+        return [torch.zeros_like(p) if d is None else d for p, d in zip(
+            G.parameters(), torch.autograd.grad(pen, list(G.parameters()), allow_unused=True))]
+
+    n = dict(fl.launches)
+    got = penalty_grads("auto")
+    layers = len(cfg.layers)
+    # every layer's backward is differentiated again but toRGB's (its
+    # cotangent is the constant noise)
+    assert fl.launches["filtered_lrelu_lin"] - n["filtered_lrelu_lin"] == layers - 1
+    assert fl.launches["filtered_lrelu_fwd"] - n["filtered_lrelu_fwd"] == layers
+    want = penalty_grads("ref")
+    for (name, _), k, r in zip(G.named_parameters(), got, want):
+        assert _rel_err(k, r) <= 1e-4, name
