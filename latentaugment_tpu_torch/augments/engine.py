@@ -56,6 +56,7 @@ from ..parallel import tensor as ptensor
 from ..utils import util_general, util_path
 from ..utils.util_easydict import EasyDict
 from ..utils.util_general import resolve_device  # noqa: F401 (re-exported)
+from ..utils.util_misc import span
 from . import losses, manifold
 from .criteria.lpips import default_lin, embedding_from_params
 
@@ -452,43 +453,45 @@ class LatentAugEngine:
         the mapping of z. With verbose_log the first batch runs the
         un-fused walk (`fname` names its snapshots); later ones run the
         fused walk and record its loss traces and wall time."""
-        w = self._to_device(w)
-        c = self._labels(c, w.shape[0])
-        rows = None
-        if self.mesh is not None:
-            rows = pmesh.shard_rows(w.shape[0], self.mesh, group_size=self._mbstd_group())
-            w, c = rows.take(w), rows.take(c)
-        if w.ndim == 2:
-            w = self._fns.z_to_w(self._bundle, w, c)
-        crop_pos = manifold.get_params(self.res, self.crop_size, self.preprocess,
-                                       rng=self._crop_rng)["crop_pos"]
-        tick = time.time()
-        # The un-fused walk is one process's: under a mesh the fused walk runs.
-        if self.verbose_log and not self._verbose_done and rows is None:
-            self._verbose_done = True
-            img, ws_aug = self._walk_debug(w, crop_pos, fname, c)
-            self._sync()
-            self.stats_time["last_forward_s"] = time.time() - tick
+        with span("engine.forward"):
+            w = self._to_device(w)
+            c = self._labels(c, w.shape[0])
+            rows = None
+            if self.mesh is not None:
+                rows = pmesh.shard_rows(w.shape[0], self.mesh, group_size=self._mbstd_group())
+                w, c = rows.take(w), rows.take(c)
+            if w.ndim == 2:
+                w = self._fns.z_to_w(self._bundle, w, c)
+            crop_pos = manifold.get_params(self.res, self.crop_size, self.preprocess,
+                                           rng=self._crop_rng)["crop_pos"]
+            tick = time.time()
+            # The un-fused walk is one process's: under a mesh the fused walk runs.
+            if self.verbose_log and not self._verbose_done and rows is None:
+                self._verbose_done = True
+                img, ws_aug = self._walk_debug(w, crop_pos, fname, c)
+                self._sync()
+                self.stats_time["last_forward_s"] = time.time() - tick
+                return img, ws_aug
+            img, ws_aug, self.last_traces = self._fns.walk(self._bundle, w, crop_pos,
+                                                           self._synth_gen, c, rows)
+            if rows is not None:
+                img, ws_aug = rows.gather(img), rows.gather(ws_aug)
+            if self.verbose_log:
+                self._sync()
+                self._record_traces(self.last_traces, time.time() - tick)
             return img, ws_aug
-        img, ws_aug, self.last_traces = self._fns.walk(self._bundle, w, crop_pos,
-                                                       self._synth_gen, c, rows)
-        if rows is not None:
-            img, ws_aug = rows.gather(img), rows.gather(ws_aug)
-        if self.verbose_log:
-            self._sync()
-            self._record_traces(self.last_traces, time.time() - tick)
-        return img, ws_aug
 
     def forward_ganrand(self, z, c=None):
         """z [B, z_dim] (and labels c as in forward) -> (img, ws)."""
-        z = self._to_device(z)
-        c = self._labels(c, z.shape[0])
-        if self.mesh is None:
-            return self._fns.ganrand(self._bundle, z, self._synth_gen, c)
-        rows = pmesh.shard_rows(z.shape[0], self.mesh)
-        img, ws = self._fns.ganrand(self._bundle, rows.take(z), self._synth_gen, rows.take(c),
-                                    rows)
-        return rows.gather(img), rows.gather(ws)
+        with span("engine.ganrand"):
+            z = self._to_device(z)
+            c = self._labels(c, z.shape[0])
+            if self.mesh is None:
+                return self._fns.ganrand(self._bundle, z, self._synth_gen, c)
+            rows = pmesh.shard_rows(z.shape[0], self.mesh)
+            img, ws = self._fns.ganrand(self._bundle, rows.take(z), self._synth_gen, rows.take(c),
+                                        rows)
+            return rows.gather(img), rows.gather(ws)
 
     def _mbstd_group(self):
         """The minibatch-stddev group size a rank's rows must keep whole:

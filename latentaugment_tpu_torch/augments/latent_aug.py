@@ -27,8 +27,21 @@ import torch.distributed as dist
 
 from ..parallel import mesh as pmesh
 from ..utils import util_path
+from ..utils.util_misc import span
 from . import engine as engine_mod
 from .base_aug import BaseAugment
+
+# Bytes of the host arrays the policy builds from other host arrays: the
+# A/B concatenation, dtype conversions that copy, the lower-bound clip.
+counters = {"host_copy_bytes": 0}
+
+
+def _as_float32(a):
+    """`a` as a float32 array, its copy counted where one is made."""
+    out = np.asarray(a, dtype=np.float32)
+    if not np.may_share_memory(out, a):
+        counters["host_copy_bytes"] += out.nbytes
+    return out
 
 
 def reverse_broadcasting(latent):
@@ -156,25 +169,29 @@ class LatentAugment(BaseAugment):
     output_sanity_check = input_sanity_check
 
     def set_input(self, data):
-        if data['A_paths'] != data['B_paths']:
-            raise ValueError("A and B paths differ")
-        self.real_A = np.asarray(data['A'], dtype=np.float32)
-        self.real_B = np.asarray(data['B'], dtype=np.float32)
-        self.fname = data['A_paths']
-        # A final partial batch is padded up to batch_size for the walk
-        # (minibatch_stddev needs whole groups); accessors trim back.
-        self._n_valid = len(self.fname)
-        self.real_AB = np.concatenate((self.real_A, self.real_B), axis=1)
+        with span("latent_aug.set_input"):
+            if data['A_paths'] != data['B_paths']:
+                raise ValueError("A and B paths differ")
+            self.real_A = _as_float32(data['A'])
+            self.real_B = _as_float32(data['B'])
+            self.fname = data['A_paths']
+            # A final partial batch is padded up to batch_size for the walk
+            # (minibatch_stddev needs whole groups); accessors trim back.
+            self._n_valid = len(self.fname)
+            self.real_AB = np.concatenate((self.real_A, self.real_B), axis=1)
+            counters["host_copy_bytes"] += self.real_AB.nbytes
 
     def get_output(self):
-        real_AB_aug = np.asarray(self.real_AB_aug, dtype=np.float32)[:self._n_valid]
-        real_A_aug = real_AB_aug[:, 0:1, :, :]  # CT
-        real_B_aug = real_AB_aug[:, 1:2, :, :]  # MRI
-        if self.lower_bound_clip:
-            real_A_aug = np.clip(real_A_aug, -1.0, None)
-            real_B_aug = np.clip(real_B_aug, -1.0, None)
-        return {'A': real_A_aug, 'B': real_B_aug,
-                'A_paths': self.fname, 'B_paths': self.fname}
+        with span("latent_aug.get_output"):
+            real_AB_aug = _as_float32(self.real_AB_aug)[:self._n_valid]
+            real_A_aug = real_AB_aug[:, 0:1, :, :]  # CT
+            real_B_aug = real_AB_aug[:, 1:2, :, :]  # MRI
+            if self.lower_bound_clip:
+                real_A_aug = np.clip(real_A_aug, -1.0, None)
+                real_B_aug = np.clip(real_B_aug, -1.0, None)
+                counters["host_copy_bytes"] += real_A_aug.nbytes + real_B_aug.nbytes
+            return {'A': real_A_aug, 'B': real_B_aug,
+                    'A_paths': self.fname, 'B_paths': self.fname}
 
     def _require_latents(self, w):
         if w is None:
@@ -198,16 +215,21 @@ class LatentAugment(BaseAugment):
         if self._rng.random() > self.p_thres and self.phase == 'train':
             self.augmented = True
             if self.rand_aug:
-                img, ws = self.latent_aug.forward_ganrand(self.sample_from_randn())
-                self.w_AB = self.w_AB_aug = ws.cpu().numpy()
+                with span("latent_aug.sample_z"):
+                    z = self.sample_from_randn()
+                img, ws = self.latent_aug.forward_ganrand(z)
             elif self.init_w == 'inv':
-                self.w_AB = self.sample_from_inversion(self.fname)
+                with span("latent_aug.read_inversion"):
+                    self.w_AB = self.sample_from_inversion(self.fname)
                 img, ws = self.latent_aug.forward(self.w_AB, self.fname)
-                self.w_AB_aug = ws.cpu().numpy()
             else:
                 raise NotImplementedError(f"init_w {self.init_w!r}")
-            # One device-to-host copy per batch, after the walk.
-            self.real_AB_aug = img.float().cpu().numpy()
+            # The batch's device-to-host copies, after the walk.
+            with span("latent_aug.to_host"):
+                self.w_AB_aug = ws.cpu().numpy()
+                if self.rand_aug:
+                    self.w_AB = self.w_AB_aug
+                self.real_AB_aug = img.float().cpu().numpy()
         else:
             # No latents exist for a skipped batch.
             self.augmented = False

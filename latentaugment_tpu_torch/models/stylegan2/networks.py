@@ -23,6 +23,7 @@ from ...ops.conv2d_resample import conv2d_resample
 from ...ops.modulated_conv import modulated_conv2d
 from ...ops.upfirdn2d import setup_filter, upsample2d
 from ...utils.util_easydict import EasyDict
+from ...utils.util_misc import span
 
 
 # ----------------------------------------------------------------------------
@@ -178,24 +179,25 @@ class MappingNetwork(nn.Module):
     def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
                 broadcast=True):
         """z, c -> w (+ truncation toward w_avg, + broadcast to num_ws)."""
-        cfg = self.cfg
-        x = normalize_2nd_moment(z.float()) if cfg.z_dim > 0 else None
-        if cfg.c_dim > 0:
-            if c is None:
-                raise ValueError(f"c_dim = {cfg.c_dim} needs labels c [N, {cfg.c_dim}]")
-            y = normalize_2nd_moment(self.embed(c.float()))
-            x = y if x is None else torch.cat([x, y], dim=1)
-        for i in range(cfg.num_mapping_layers):
-            x = getattr(self, f'fc{i}')(x)
-        if truncation_psi != 1.0 and (truncation_cutoff is None or not broadcast):
-            x = self.w_avg + truncation_psi * (x - self.w_avg)
-        if broadcast:
-            x = x[:, None, :].repeat(1, cfg.num_ws, 1)
-            if truncation_psi != 1.0 and truncation_cutoff is not None:
-                x = x.clone()
-                x[:, :truncation_cutoff] = self.w_avg + truncation_psi * (
-                    x[:, :truncation_cutoff] - self.w_avg)
-        return x
+        with span("G.mapping"):
+            cfg = self.cfg
+            x = normalize_2nd_moment(z.float()) if cfg.z_dim > 0 else None
+            if cfg.c_dim > 0:
+                if c is None:
+                    raise ValueError(f"c_dim = {cfg.c_dim} needs labels c [N, {cfg.c_dim}]")
+                y = normalize_2nd_moment(self.embed(c.float()))
+                x = y if x is None else torch.cat([x, y], dim=1)
+            for i in range(cfg.num_mapping_layers):
+                x = getattr(self, f'fc{i}')(x)
+            if truncation_psi != 1.0 and (truncation_cutoff is None or not broadcast):
+                x = self.w_avg + truncation_psi * (x - self.w_avg)
+            if broadcast:
+                x = x[:, None, :].repeat(1, cfg.num_ws, 1)
+                if truncation_psi != 1.0 and truncation_cutoff is not None:
+                    x = x.clone()
+                    x[:, :truncation_cutoff] = self.w_avg + truncation_psi * (
+                        x[:, :truncation_cutoff] - self.w_avg)
+            return x
 
 
 # ----------------------------------------------------------------------------
@@ -306,29 +308,30 @@ class SynthesisNetwork(nn.Module):
         recomputed block sees the same noise. Under data parallelism `rows`
         (parallel.mesh.Rows) says which rows of a global batch ws holds:
         the noise is drawn for the global batch and its rows taken."""
-        cfg = self.cfg
-        f = self.resample_filter
-        fp16 = _fp16_resolutions(cfg)
-        x = img = None
-        w_idx = 0
-        for res in cfg.block_resolutions:
-            block = getattr(self, f'b{res}')
-            dtype = torch.bfloat16 if res in fp16 else torch.float32
-            n_conv = 1 if res == 4 else 2
-            noises = None
-            if noise_mode == 'random':
-                draw = torch.randn if rows is None else rows.randn
-                noises = tuple(draw([ws.shape[0], 1, res, res], generator=generator,
-                                    device=ws.device, dtype=dtype)
-                               for _ in range(n_conv))
-            args = (x, ws[:, w_idx:w_idx + n_conv + 1], f, dtype, noise_mode, noises)
-            if _want_remat(remat, res) and torch.is_grad_enabled():
-                x, y = checkpoint(block, *args, use_reentrant=False)
-            else:
-                x, y = block(*args)
-            w_idx += n_conv
-            img = y if img is None else upsample2d(img, f, up=2, impl=self.impl) + y
-        return img
+        with span("G.synthesis"):
+            cfg = self.cfg
+            f = self.resample_filter
+            fp16 = _fp16_resolutions(cfg)
+            x = img = None
+            w_idx = 0
+            for res in cfg.block_resolutions:
+                block = getattr(self, f'b{res}')
+                dtype = torch.bfloat16 if res in fp16 else torch.float32
+                n_conv = 1 if res == 4 else 2
+                noises = None
+                if noise_mode == 'random':
+                    draw = torch.randn if rows is None else rows.randn
+                    noises = tuple(draw([ws.shape[0], 1, res, res], generator=generator,
+                                        device=ws.device, dtype=dtype)
+                                   for _ in range(n_conv))
+                args = (x, ws[:, w_idx:w_idx + n_conv + 1], f, dtype, noise_mode, noises)
+                if _want_remat(remat, res) and torch.is_grad_enabled():
+                    x, y = checkpoint(block, *args, use_reentrant=False)
+                else:
+                    x, y = block(*args)
+                w_idx += n_conv
+                img = y if img is None else upsample2d(img, f, up=2, impl=self.impl) + y
+            return img
 
 
 class Generator(nn.Module):
@@ -439,26 +442,27 @@ class Discriminator(nn.Module):
     def forward(self, img, c=None, remat=False, rows=None):
         """remat as in SynthesisNetwork.forward; `rows` (data parallelism)
         as in minibatch_stddev."""
-        cfg = self.cfg
-        f = self.resample_filter
-        fp16 = _fp16_resolutions(cfg)
-        x = None
-        for res in cfg.block_resolutions:
-            block = getattr(self, f'b{res}')
-            dtype = torch.bfloat16 if res in fp16 else torch.float32
-            if block.first:
-                img = img.to(dtype)
-            else:
-                x = x.to(dtype)
-            if _want_remat(remat, res) and torch.is_grad_enabled():
-                x = checkpoint(block, x, img, f, use_reentrant=False)
-            else:
-                x = block(x, img, f)
-        x = self.b4(x.float(), rows)
-        if cfg.c_dim > 0:
-            cmap = self.mapping(None, c, broadcast=False)
-            x = (x * cmap).sum(dim=1, keepdim=True) * float(1.0 / np.sqrt(cfg.cmap_dim))
-        return x
+        with span("D.forward"):
+            cfg = self.cfg
+            f = self.resample_filter
+            fp16 = _fp16_resolutions(cfg)
+            x = None
+            for res in cfg.block_resolutions:
+                block = getattr(self, f'b{res}')
+                dtype = torch.bfloat16 if res in fp16 else torch.float32
+                if block.first:
+                    img = img.to(dtype)
+                else:
+                    x = x.to(dtype)
+                if _want_remat(remat, res) and torch.is_grad_enabled():
+                    x = checkpoint(block, x, img, f, use_reentrant=False)
+                else:
+                    x = block(x, img, f)
+            x = self.b4(x.float(), rows)
+            if cfg.c_dim > 0:
+                cmap = self.mapping(None, c, broadcast=False)
+                x = (x * cmap).sum(dim=1, keepdim=True) * float(1.0 / np.sqrt(cfg.cmap_dim))
+            return x
 
 
 def set_impl(module, impl):

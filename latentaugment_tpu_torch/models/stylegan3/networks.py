@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from ...ops.filtered_lrelu import filtered_lrelu
 from ...ops.modulated_conv import modulated_conv2d
 from ...utils.util_easydict import EasyDict
+from ...utils.util_misc import span
 from ..stylegan2.networks import (FullyConnectedLayer, MappingNetwork, _randn,
                                   _want_remat, set_impl)
 from .filters import design_lowpass_filter
@@ -274,22 +275,23 @@ class SynthesisNetwork(nn.Module):
         compatibility and ignored (this generator draws no noise). remat
         checkpoints layers (bool = all, int = layers whose out_size >=
         remat). `transform` overrides the stored global input transform."""
-        del noise_mode, generator, rows
-        cfg = self.cfg
-        if ws.shape[1] != cfg.num_ws:
-            raise ValueError(f"ws has {ws.shape[1]} layers, the generator takes {cfg.num_ws}")
-        x = self.input(ws[:, 0], transform=transform)
-        for i, layer in enumerate(cfg.layers):
-            mod = getattr(self, layer.name)
-            args = (x, ws[:, i + 1], _layer_dtype(cfg, layer))
-            if _want_remat(remat, layer.out_size) and torch.is_grad_enabled():
-                x = checkpoint(mod, *args, use_reentrant=False)
-            else:
-                x = mod(*args)
-        x = x.float()
-        if cfg.output_scale != 1.0:
-            x = x * float(cfg.output_scale)
-        return x
+        with span("G.synthesis"):
+            del noise_mode, generator, rows
+            cfg = self.cfg
+            if ws.shape[1] != cfg.num_ws:
+                raise ValueError(f"ws has {ws.shape[1]} layers, the generator takes {cfg.num_ws}")
+            x = self.input(ws[:, 0], transform=transform)
+            for i, layer in enumerate(cfg.layers):
+                mod = getattr(self, layer.name)
+                args = (x, ws[:, i + 1], _layer_dtype(cfg, layer))
+                if _want_remat(remat, layer.out_size) and torch.is_grad_enabled():
+                    x = checkpoint(mod, *args, use_reentrant=False)
+                else:
+                    x = mod(*args)
+            x = x.float()
+            if cfg.output_scale != 1.0:
+                x = x * float(cfg.output_scale)
+            return x
 
 
 # ----------------------------------------------------------------------------

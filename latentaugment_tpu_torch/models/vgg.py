@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .stylegan2.checkpoint import load_pickle
+from ..utils.util_misc import span
 
 # VGG16 conv plan: (name, out_channels); 'M' = 2x2 max pool.
 VGG16_PLAN = [
@@ -88,30 +89,31 @@ def vgg_features(params, x, plan=VGG16_PLAN, taps=None, input_range="0_255"):
 
     x: [N, 3, H, W]. input_range '0_255' applies the LPIPS pre-scaling;
     'unit' assumes already-normalized inputs."""
-    taps = list(taps) if taps is not None else [LPIPS_TAPS[-1]]
-    want = set(taps)
-    if input_range == "0_255":
-        # Per-channel Python scalars: a constant tensor would be a host
-        # to device copy on every call.
-        x = torch.cat([(x[:, i:i + 1] / 127.5 - 1.0 - _LPIPS_SHIFT[i]) / _LPIPS_SCALE[i]
-                       for i in range(3)], dim=1)
-    out = {}
-    for item in plan:
-        if item == "M":
-            x = F.max_pool2d(x, 2)
-            continue
-        name, _ = item
-        p = params[name]
-        tp = p.get("tp")  # a layer split over a model axis (parallel/tensor.py)
-        x_in = x if tp is None else tp.enter(x)
-        x = F.relu(F.conv2d(x_in, p["weight"].to(x.dtype), p["bias"].to(x.dtype), padding=1))
-        if tp is not None:
-            x = tp.gather(x)
-        if name in want:
-            out[name] = x
-            if len(out) == len(want):
-                break
-    return out
+    with span("vgg16.features"):
+        taps = list(taps) if taps is not None else [LPIPS_TAPS[-1]]
+        want = set(taps)
+        if input_range == "0_255":
+            # Per-channel Python scalars: a constant tensor would be a host
+            # to device copy on every call.
+            x = torch.cat([(x[:, i:i + 1] / 127.5 - 1.0 - _LPIPS_SHIFT[i]) / _LPIPS_SCALE[i]
+                           for i in range(3)], dim=1)
+        out = {}
+        for item in plan:
+            if item == "M":
+                x = F.max_pool2d(x, 2)
+                continue
+            name, _ = item
+            p = params[name]
+            tp = p.get("tp")  # a layer split over a model axis (parallel/tensor.py)
+            x_in = x if tp is None else tp.enter(x)
+            x = F.relu(F.conv2d(x_in, p["weight"].to(x.dtype), p["bias"].to(x.dtype), padding=1))
+            if tp is not None:
+                x = tp.gather(x)
+            if name in want:
+                out[name] = x
+                if len(out) == len(want):
+                    break
+        return out
 
 
 def lpips_features(params, x, input_range="0_255"):

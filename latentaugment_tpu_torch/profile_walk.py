@@ -82,10 +82,13 @@ def _timer(device, reps, warmup=2):
 
 
 def _device_busy(prof):
-    """(busy ms as the union of kernel intervals, {kind: ms}, top kernels)."""
+    """(busy ms as the union of kernel intervals, {kind: ms}, top kernels).
+    The device-side ranges of `record_function` spans (user annotations)
+    are not kernels and are left out."""
     spans, kinds, names = [], {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         if end <= start:

@@ -1,9 +1,24 @@
 """Multi-device helpers (counterpart: latentaugment_tpu/utils/util_misc.py:128-159):
 a check that every rank holds the same parameters, and a parameter
-summary table."""
+summary table; and `span`, the named ranges the program marks its layers
+with (the counterpart of the JAX package's `profiled_function`)."""
+
+import contextlib
 
 import numpy as np
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A named range of the program's host work and of the kernels it
+    launches, recorded by whatever profiler is on (`torch.profiler`,
+    or `torch.autograd.profiler.emit_nvtx` for Nsight); with no profiler
+    on, one shared context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _named_tensors(tree):

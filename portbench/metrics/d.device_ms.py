@@ -1,0 +1,20 @@
+"""d.device_ms: device ms a batch of the kernels launched under the
+program's D.forward span, with their backward (the walk's discriminator
+term, K times a batch), in the timeline trace of the traced batches
+(harness/spans.py)."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from harness import spans  # noqa: E402
+
+
+def read(ctx):
+    if not spans.walks(ctx) or float(ctx["traffic"]["w_disc"]) <= 0:
+        return None
+    att = spans.read(ctx, ("D.forward",))
+    if att is None:
+        return None
+    return spans.kernel_ms(att, lambda st, name: spans.outer_model(st) == "D.forward")

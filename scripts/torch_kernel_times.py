@@ -115,7 +115,9 @@ def sg3r_walk(torch, dev, batch=16, reps=3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, kinds = [], {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # Spans' device-side ranges (user annotations) are not kernels.
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         if end <= start:

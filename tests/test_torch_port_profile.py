@@ -55,3 +55,29 @@ def test_profile_walk_runs_sg3_small_on_cpu(tmp_path):
 ])
 def test_kernel_kinds(name, kind):
     assert profile_walk.kind_of(name) == kind
+
+
+def test_device_busy_leaves_out_the_device_ranges_of_spans():
+    """A `record_function` span shows on the device timeline as a user
+    annotation over the kernels it launched; it is not a kernel."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import FunctionEvent
+
+    class Prof:
+        def __init__(self, events):
+            self._events = events
+
+        def events(self):
+            return self._events
+
+    def evt(name, start, end, annotation=False):
+        return FunctionEvent(id=0, name=name, thread=0, start_us=start, end_us=end,
+                             device_type=DeviceType.CUDA, is_user_annotation=annotation)
+
+    kernels = [evt("void upfirdn2d_kernel<float>(...)", 10.0, 20.0),
+               evt("Memcpy DtoH (Device -> Pageable)", 30.0, 35.0)]
+    busy_ms, kinds, top = profile_walk._device_busy(
+        Prof(kernels + [evt("G.synthesis", 0.0, 40.0, annotation=True)]))
+    assert busy_ms == pytest.approx(0.015)
+    assert kinds == {"K2 upfirdn2d": pytest.approx(0.010), "memcpy/memset": pytest.approx(0.005)}
+    assert [name for name, _ in top] == [k.name for k in kernels]
